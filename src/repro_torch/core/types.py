@@ -1,0 +1,199 @@
+"""Core datatypes for sLDA and its embarrassingly parallel runner.
+
+Small dataclasses of tensors, in the reference's layouts: counts are kept
+in float32 (small integers, exact below 2^24), topic-word tables are
+`[T, W]` with a leading chain dim `[M, T, W]` where chains are batched.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+Tensor = torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class SLDAConfig:
+    """Hyperparameters of supervised LDA (McAuliffe & Blei 2008 notation).
+
+    Same fields and defaults as the reference's `SLDAConfig`.  This port
+    runs the padded, one-launch-per-sweep, dense-sampler path; the other
+    settings raise until the ROADMAP item that brings them lands.
+    `use_pallas` is accepted and ignored: the tensors' device decides
+    between the CUDA kernels and their plain versions.
+    """
+
+    n_topics: int = 32
+    vocab_size: int = 1024
+    alpha: float = 0.1       # Dir prior on doc-topic θ_d
+    beta: float = 0.01       # Dir prior on topic-word φ_t
+    rho: float = 0.5         # response noise  y_d ~ N(ηᵀ z̄_d, ρ)
+    mu: float = 0.0          # prior mean of η_t
+    sigma: float = 10.0      # prior variance of η_t
+    label_type: str = "continuous"   # "continuous" | "binary"
+    n_iters: int = 60        # stochastic-EM iterations (Gibbs sweep + η solve)
+    n_pred_burnin: int = 15  # test-time Gibbs burn-in sweeps
+    n_pred_samples: int = 10 # test-time sweeps averaged for z̄
+    use_pallas: bool = False # accepted for parity; the device decides
+    pred_doc_block: int = 8  # reference kernel tiling; unused here
+    count_rebuild_every: int = 16  # exact ntw/nt rebuild cadence; the
+                             # iterations in between apply exact ±1 deltas
+    sweeps_per_launch: int = 1
+    train_doc_block: int = 128
+    product_form_sweeps: bool = True
+    fuse_weighted_predict: bool = True  # Weighted Average predicts test
+                             # and train in ONE chain-batched pass
+    length_buckets: int = 0
+    bucket_token_block: int = 8
+    bucket_overhead_docs: float = 0.0
+    chains_per_device: int = 1
+    sampler_mode: str = "dense"
+    sparse_topic_cap: int = 32
+
+    def __post_init__(self):
+        if self.sweeps_per_launch > 1:
+            raise NotImplementedError(
+                "sweeps_per_launch > 1 (fused training) comes with ROADMAP "
+                "queue A item 7 / kernel B3")
+        if self.length_buckets > 0:
+            raise NotImplementedError(
+                "length_buckets > 0 (ragged execution) comes with ROADMAP "
+                "queue A item 8")
+        if self.sampler_mode != "dense":
+            raise NotImplementedError(
+                f"sampler_mode={self.sampler_mode!r} comes with ROADMAP "
+                "queue A item 9 / kernel B4")
+
+
+class _Tensors:
+    """Field-wise helpers for the tensor dataclasses below."""
+
+    def map(self, fn):
+        return type(self)(*(fn(getattr(self, f.name))
+                            for f in dataclasses.fields(self)))
+
+    def to(self, device):
+        return self.map(lambda t: t.to(device))
+
+
+@dataclasses.dataclass
+class Corpus(_Tensors):
+    """A padded bag of documents.
+
+    tokens  : int32[D, N]  word ids, padding value arbitrary where mask==0
+    mask    : float32[D, N] 1.0 on real tokens
+    y       : float32[D]   document labels (binary labels stored as 0/1)
+    A chain-sharded corpus carries a leading chain dim: [M, D, N].
+    """
+
+    tokens: Tensor
+    mask: Tensor
+    y: Tensor
+
+    @property
+    def n_docs(self) -> int:
+        return self.tokens.shape[-2]
+
+    @property
+    def max_len(self) -> int:
+        return self.tokens.shape[-1]
+
+    def lengths(self) -> Tensor:
+        return self.mask.sum(-1)
+
+
+@dataclasses.dataclass
+class GibbsState(_Tensors):
+    """State of collapsed-Gibbs sLDA chains (leading chain dim optional)."""
+
+    z: Tensor      # int32[D, N]   token-topic assignments
+    ndt: Tensor    # float32[D, T] doc-topic counts
+    ntw: Tensor    # float32[T, W] topic-word counts
+    nt: Tensor     # float32[T]    topic totals
+    eta: Tensor    # float32[T]    regression weights
+
+
+@dataclasses.dataclass
+class SLDAModel(_Tensors):
+    """What a trained chain exports: enough to predict, nothing more —
+    the only thing that crosses a chain boundary."""
+
+    phi: Tensor        # float32[T, W] topic-word distributions  φ̂
+    eta: Tensor        # float32[T]    regression weights        η̂
+    train_mse: Tensor  # float32[] training-set MSE (Weighted Average weight)
+    train_acc: Tensor  # float32[] training-set accuracy (binary labels)
+
+
+def partition(corpus: Corpus, m: int) -> Corpus:
+    """Split a corpus into M equal shards: [D, ...] → [M, D/M, ...].
+
+    The paper partitions uniformly at random; callers should pre-shuffle.
+    D must be divisible by M (pad the corpus if not).
+    """
+    if corpus.n_docs % m:
+        raise ValueError(f"{corpus.n_docs} docs not divisible by {m} shards")
+    return corpus.map(
+        lambda x: x.reshape((m, corpus.n_docs // m) + tuple(x.shape[1:])))
+
+
+def _concat_corpora(a: Corpus, b: Corpus) -> Corpus:
+    """Stack two corpora along the doc axis (padding to a common max_len)
+    so one fused prediction pass covers both."""
+    n = max(a.max_len, b.max_len)
+    padn = lambda x: torch.nn.functional.pad(x, (0, n - x.shape[-1]))
+    return Corpus(tokens=torch.cat([padn(a.tokens), padn(b.tokens)]),
+                  mask=torch.cat([padn(a.mask), padn(b.mask)]),
+                  y=torch.cat([a.y, b.y]))
+
+
+def counts_from_assignments(tokens: Tensor, mask: Tensor, z: Tensor,
+                            n_topics: int, vocab_size: int):
+    """Exact (ndt, ntw, nt) from the current assignments.
+
+    tokens/mask/z are [..., D, N]; leading dims are independent chains.
+    Returns ndt [..., D, T], ntw [..., T, W], nt [..., T].  The scatters
+    add 0/1 values, so any order of accumulation is exact."""
+    lead, (D, N) = tokens.shape[:-2], tokens.shape[-2:]
+    B = math.prod(lead)
+    dev = tokens.device
+    b = torch.arange(B, device=dev)[:, None, None].expand(B, D, N)
+    d = torch.arange(D, device=dev)[None, :, None].expand(B, D, N)
+    zz = z.reshape(B, D, N).long()
+    m = mask.reshape(B, D, N)
+    ndt = torch.zeros((B, D, n_topics), dtype=torch.float32, device=dev)
+    ndt.index_put_((b, d, zz), m, accumulate=True)
+    ntw = torch.zeros((B, n_topics, vocab_size), dtype=torch.float32,
+                      device=dev)
+    ntw.index_put_((b, zz, tokens.reshape(B, D, N).long()), m,
+                   accumulate=True)
+    ndt = ndt.reshape(lead + (D, n_topics))
+    ntw = ntw.reshape(lead + (n_topics, vocab_size))
+    return ndt, ntw, ntw.sum(-1)
+
+
+def apply_count_deltas(ntw: Tensor, nt: Tensor, tokens: Tensor,
+                       mask: Tensor, z_old: Tensor, z_new: Tensor):
+    """Exact incremental (ntw, nt) refresh from one sweep's reassignments,
+    in the reference's dense form: −1 at (z_old, w) and +1 at (z_new, w)
+    for every real token whose topic changed.  ±1 float32 updates are
+    lossless below 2^24.  Shapes as `counts_from_assignments`, with
+    ntw [..., T, W] and nt [..., T]; returns new tensors."""
+    lead, (D, N) = tokens.shape[:-2], tokens.shape[-2:]
+    T, W = ntw.shape[-2:]
+    B = math.prod(lead)
+    changed = (mask * (z_new != z_old).to(mask.dtype)).reshape(B, D * N)
+    b = torch.arange(B, device=tokens.device)[:, None].expand(B, D * N)
+    w = tokens.reshape(B, D * N).long()
+    zo = z_old.reshape(B, D * N).long()
+    zn = z_new.reshape(B, D * N).long()
+    ntw2 = ntw.reshape(B, T, W).clone()
+    ntw2.index_put_((b, zo, w), -changed, accumulate=True)
+    ntw2.index_put_((b, zn, w), changed, accumulate=True)
+    add = torch.zeros((B, T), dtype=nt.dtype, device=nt.device)
+    add.index_put_((b, zn), changed, accumulate=True)
+    sub = torch.zeros((B, T), dtype=nt.dtype, device=nt.device)
+    sub.index_put_((b, zo), changed, accumulate=True)
+    nt2 = nt.reshape(B, T) + add - sub
+    return ntw2.reshape(ntw.shape), nt2.reshape(nt.shape)

@@ -1,0 +1,10 @@
+"""The sampler kernels of the port and their plain versions.
+
+  slda_gibbs    — kernel B2: one supervised training sweep (CUDA, sm_90a)
+  slda_predict  — kernel B1: all prediction sweeps in one launch
+  ref           — the plain PyTorch versions (the CPU route)
+  ops           — the device routing the core calls
+  build         — nvcc build at first use, ctypes binding
+
+Importing this package builds nothing; the first CUDA launch does.
+"""

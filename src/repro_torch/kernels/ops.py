@@ -1,0 +1,55 @@
+"""The two sampler operations the core calls, routed by device.
+
+A CUDA tensor goes to the hand-written kernel (`slda_gibbs`,
+`slda_predict`), or the kernel raises; a CPU tensor goes to the plain
+version in `ref`.  There is no other route and no fallback.  Both ops
+are the reference's `chain_axis=True` forms and keep its layouts: tables
+come in as `[M, T, W]` and are transposed to the row-gather `[M, W, T]`
+layout here, inside the op.
+"""
+from __future__ import annotations
+
+from . import ref, slda_gibbs, slda_predict
+
+
+def _route(t):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no sampler kernel for device {t.device}")
+    return t.device.type == "cuda"
+
+
+def _dense(*tensors):
+    """The kernels take contiguous operands (a batched solve may return
+    strided ones)."""
+    return [t.contiguous() for t in tensors]
+
+
+def slda_gibbs_sweep(tokens, mask, uniforms, z, ndt, y, inv_len, ntw, nt,
+                     eta, *, alpha, beta, rho, supervised=True):
+    """One document-parallel Gibbs sweep for M chains at once.
+
+    tokens/mask/uniforms/z [M, D, N]; ndt [M, D, T]; y/inv_len [M, D];
+    ntw [M, T, W]; nt/eta [M, T].  Returns (z_new, ndt_new)."""
+    ntw_t = ntw.transpose(-1, -2)
+    kw = dict(alpha=alpha, beta=beta, rho=rho, supervised=supervised)
+    if _route(tokens):
+        return slda_gibbs.slda_gibbs_sweep_cuda(*_dense(
+            tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, nt, eta), **kw)
+    return ref.ref_slda_gibbs_sweep_chains(tokens, mask, uniforms, z, ndt, y,
+                                           inv_len, ntw_t, nt, eta, **kw)
+
+
+def slda_predict_sweeps(tokens, mask, z0, ndt0, phi, seeds, *, alpha,
+                        n_burnin, n_samples, ctr_stride=None):
+    """All `n_burnin + n_samples` test-time sweeps for M chains over one
+    shared corpus.  tokens/mask [D, N]; z0 [M, D, N]; ndt0 [M, D, T];
+    phi [M, T, W]; seeds int32 [M, D].
+    Returns (ndt_avg [M, D, T], z_final [M, D, N])."""
+    phi_t = phi.transpose(-1, -2)
+    kw = dict(alpha=alpha, n_burnin=n_burnin, n_samples=n_samples,
+              ctr_stride=ctr_stride)
+    if _route(tokens):
+        return slda_predict.slda_predict_sweeps_cuda(*_dense(
+            tokens, mask, seeds, z0, ndt0, phi_t), **kw)
+    return ref.slda_predict_sweeps_chains(tokens, mask, seeds, z0, ndt0,
+                                          phi_t, **kw)

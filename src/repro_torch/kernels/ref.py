@@ -1,0 +1,184 @@
+"""Plain PyTorch versions of the two sampler kernels.
+
+They are the kernels' semantics written as tensor code: the CPU route of
+`kernels.ops`, and what `chip_smoke.py` holds the CUDA kernels against on
+the card.  All documents advance in lockstep, one token position at a
+time (the dependence along a document is sequential); chains are folded
+into the document-row axis around one stacked `[M·W, T]` table with
+per-chain token-id offsets `w + c·W`.  The operation order is the
+reference's (`repro.kernels.ref`), and the prefix sum is `p @ triu(T)`.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.mathutil import upper_tri_ones
+from .prng import counter_uniform
+
+
+def _draw(p, u, tri_u):
+    """Inverse-CDF categorical draw: z = #{t : (p @ triu)_t < u·Σp}."""
+    c = p @ tri_u
+    return (c < (u * c[:, -1])[:, None]).sum(-1).to(torch.int32)
+
+
+def _fold_chains(tokens, table_t):
+    """Chain-folded row layout: tokens [M, D, N] (or shared [D, N]) against
+    per-chain tables [M, W, T] → token ids [M·D, N] into the stacked
+    [M·W, T] table (int64, ready for indexing) and the stacked table."""
+    M, W, T = table_t.shape
+    off = (torch.arange(M, device=tokens.device) * W)[:, None, None]
+    tok = tokens.long()
+    if tok.dim() == 2:
+        tok = tok[None]
+    tok_f = (tok + off).reshape(-1, tokens.shape[-1])
+    return tok_f, table_t.reshape(M * W, T)
+
+
+def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
+                nt_rows, eta_rows, alpha, beta, rho, vocab_size,
+                supervised):
+    """One supervised sweep over R document rows in lockstep against the
+    sweep-frozen table (AD-LDA delayed counts); nt/eta are per row [R, T]."""
+    R, N = tok_f.shape
+    T = ndt_f.shape[-1]
+    iota = torch.arange(T, device=tok_f.device)[None, :]
+    tri_u = upper_tri_ones(T, tok_f.device)
+    ndt = ndt_f
+    s = (ndt * eta_rows).sum(-1)            # running Σ_t η_t N_dt
+    z_out = torch.empty_like(z_f)
+    w_beta = vocab_size * beta
+    for n in range(N):
+        w, m, z_old, u = tok_f[:, n], mask_f[:, n], z_f[:, n], unif_f[:, n]
+        zo = z_old.long()[:, None]
+        old = (iota == zo).to(torch.float32) * m[:, None]
+        ndt = ndt - old
+        s = s - eta_rows.gather(1, zo)[:, 0] * m
+        logp = (torch.log(ndt + alpha)
+                + torch.log(table_t[w] - old + beta)
+                - torch.log(nt_rows - old + w_beta))
+        if supervised:
+            mu_t = (s[:, None] + eta_rows) * il_f[:, None]
+            logp = logp - 0.5 * (y_f[:, None] - mu_t) ** 2 / rho
+        p = torch.exp(logp - logp.max(-1, keepdim=True).values)
+        z_new = torch.where(m > 0, _draw(p, u, tri_u), z_old)
+        zn = z_new.long()[:, None]
+        ndt = ndt + (iota == zn).to(torch.float32) * m[:, None]
+        s = s + eta_rows.gather(1, zn)[:, 0] * m
+        z_out[:, n] = z_new
+    return z_out, ndt
+
+
+def ref_slda_gibbs_sweep_chains(tokens, mask, uniforms, z, ndt, y, inv_len,
+                                ntw_t, nt, eta, alpha, beta, rho,
+                                supervised: bool = True):
+    """Chain-batched document-parallel sLDA Gibbs sweep (plain B2).
+
+    tokens/mask/uniforms/z [M, D, N]; ndt [M, D, T]; y/inv_len [M, D];
+    ntw_t [M, W, T] (transposed, row-gather layout); nt/eta [M, T].
+    Returns (z_new [M, D, N] int32, ndt_new [M, D, T])."""
+    M, D, N = tokens.shape
+    W, T = ntw_t.shape[-2:]
+    tok_f, table = _fold_chains(tokens, ntw_t)
+    rows = lambda a: a[:, None, :].expand(M, D, T).reshape(M * D, T)
+    z2, ndt2 = _gibbs_rows(
+        tok_f, mask.reshape(M * D, N), uniforms.reshape(M * D, N),
+        z.reshape(M * D, N), ndt.reshape(M * D, T), y.reshape(M * D),
+        inv_len.reshape(M * D), table, rows(nt), rows(eta),
+        alpha, beta, rho, W, supervised)
+    return z2.reshape(M, D, N), ndt2.reshape(M, D, T)
+
+
+def ref_slda_gibbs_sweep(tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t,
+                         nt, eta, alpha, beta, rho, supervised: bool):
+    """Single-chain sweep: tokens/mask/uniforms/z [D, N]; ndt [D, T];
+    y/inv_len [D]; ntw_t [W, T]; nt/eta [T].  Returns (z_new, ndt_new)."""
+    z2, ndt2 = ref_slda_gibbs_sweep_chains(
+        *(a[None] for a in (tokens, mask, uniforms, z, ndt, y, inv_len,
+                            ntw_t, nt, eta)),
+        alpha, beta, rho, supervised)
+    return z2[0], ndt2[0]
+
+
+def _predict_rows(tok_f, mask_f, z0_f, ndt0_f, table_t, alpha, n_burnin,
+                  n_samples, uniform):
+    """All prediction sweeps over R rows in lockstep under frozen φ̂;
+    `uniform(s, n)` gives the [R] uniforms of token n in sweep s."""
+    R, N = tok_f.shape
+    T = ndt0_f.shape[-1]
+    iota = torch.arange(T, device=tok_f.device)[None, :]
+    tri_u = upper_tri_ones(T, tok_f.device)
+    z = z0_f.clone()
+    ndt = ndt0_f
+    acc = torch.zeros_like(ndt0_f)
+    for s in range(n_burnin + n_samples):
+        for n in range(N):
+            w, m, z_old = tok_f[:, n], mask_f[:, n], z[:, n]
+            old = (iota == z_old.long()[:, None]).to(torch.float32) \
+                * m[:, None]
+            ndt = ndt - old
+            p = (ndt + alpha) * table_t[w]
+            z_new = torch.where(m > 0, _draw(p, uniform(s, n), tri_u), z_old)
+            ndt = ndt + (iota == z_new.long()[:, None]).to(torch.float32) \
+                * m[:, None]
+            z[:, n] = z_new
+        if s >= n_burnin:
+            acc = acc + ndt
+    # explicit f32 reciprocal multiply, as the reference kernel does
+    return acc * float(np.float32(1.0 / n_samples)), z
+
+
+def _fold_shared(mask, M):
+    """A shared [D, N] mask → chain-folded [M·D, N] rows."""
+    D, N = mask.shape
+    return mask[None].expand(M, D, N).reshape(M * D, N)
+
+
+def ref_slda_predict_sweeps_chains(tokens, mask, uniforms, z0, ndt0, phi_t,
+                                   alpha, n_burnin: int):
+    """Chain-batched prediction with EXPLICIT uniforms.
+
+    tokens/mask [D, N] shared by all chains; uniforms [M, D, S, N]
+    (S = burn-in + samples); z0 [M, D, N]; ndt0 [M, D, T]; phi_t [M, W, T].
+    Returns (ndt_avg [M, D, T], z_final [M, D, N])."""
+    M, D, S, N = uniforms.shape
+    T = ndt0.shape[-1]
+    tok_f, table = _fold_chains(tokens, phi_t)
+    u_f = uniforms.reshape(M * D, S, N)
+    avg, z = _predict_rows(tok_f, _fold_shared(mask, M),
+                           z0.reshape(M * D, N), ndt0.reshape(M * D, T),
+                           table, alpha, n_burnin, S - n_burnin,
+                           lambda s, n: u_f[:, s, n])
+    return avg.reshape(M, D, T), z.reshape(M, D, N)
+
+
+def ref_slda_predict_sweeps(tokens, mask, uniforms, z0, ndt0, phi_t, alpha,
+                            n_burnin: int):
+    """Single-chain prediction with explicit uniforms [D, S, N]; phi_t
+    [W, T].  Returns (ndt_avg [D, T], z_final [D, N])."""
+    avg, z = ref_slda_predict_sweeps_chains(
+        tokens, mask, uniforms[None], z0[None], ndt0[None], phi_t[None],
+        alpha, n_burnin)
+    return avg[0], z[0]
+
+
+def slda_predict_sweeps_chains(tokens, mask, seeds, z0, ndt0, phi_t, *,
+                               alpha, n_burnin, n_samples, ctr_stride=None):
+    """Plain B1: chain-batched prediction with the counter-hash uniforms
+    u = counter_uniform(seeds[c, d], s·ctr_stride + n) derived per token,
+    as the kernel derives them (no [D, S, N] tensor).
+
+    tokens/mask [D, N] shared; seeds int32 [M, D]; z0 [M, D, N]; ndt0
+    [M, D, T]; phi_t [M, W, T].  Returns (ndt_avg [M, D, T], z_final)."""
+    M = phi_t.shape[0]
+    D, N = mask.shape
+    T = ndt0.shape[-1]
+    stride = N if ctr_stride is None else ctr_stride
+    tok_f, table = _fold_chains(tokens, phi_t)
+    seeds_f = seeds.reshape(M * D)
+    avg, z = _predict_rows(
+        tok_f, _fold_shared(mask, M), z0.reshape(M * D, N),
+        ndt0.reshape(M * D, T), table, alpha, n_burnin, n_samples,
+        lambda s, n: counter_uniform(seeds_f, s * stride + n))
+    return avg.reshape(M, D, T), z.reshape(M, D, N)

@@ -1,0 +1,60 @@
+"""Kernel B2 on the card: one supervised Gibbs training sweep.
+
+`slda_gibbs_sweep_cuda` launches `csrc/slda_gibbs.cu`, which replaces the
+TPU kernel `_gibbs_kernel` of the reference (`repro/kernels/slda_gibbs.py`);
+the note at the head of the source says what bounds it and what its
+design does about that.  The plain version is
+`ref.ref_slda_gibbs_sweep_chains`.  `launches` counts the kernel's
+launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+launches = 0
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGS = [_P] * 12 + [_I] * 5 + [_F] * 4 + [_I, _P]
+
+
+def slda_gibbs_sweep_cuda(tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t,
+                          nt, eta, *, alpha, beta, rho, supervised=True):
+    """tokens int32 / mask, uniforms f32 / z int32 [M, D, N]; ndt f32
+    [M, D, T]; y, inv_len f32 [M, D]; ntw_t f32 [M, W, T]; nt, eta f32
+    [M, T].  Returns (z_new [M, D, N], ndt_new [M, D, T]), on the current
+    stream."""
+    global launches
+    M, D, N = tokens.shape
+    W, T = ntw_t.shape[-2:]
+    dev = tokens.device
+    for name, t, dtype, shape in (
+            ("tokens", tokens, torch.int32, (M, D, N)),
+            ("mask", mask, torch.float32, (M, D, N)),
+            ("uniforms", uniforms, torch.float32, (M, D, N)),
+            ("z", z, torch.int32, (M, D, N)),
+            ("ndt", ndt, torch.float32, (M, D, T)),
+            ("y", y, torch.float32, (M, D)),
+            ("inv_len", inv_len, torch.float32, (M, D)),
+            ("ntw_t", ntw_t, torch.float32, (M, W, T)),
+            ("nt", nt, torch.float32, (M, T)),
+            ("eta", eta, torch.float32, (M, T))):
+        build.check_operand(name, t, dtype, shape, dev)
+    if not 1 <= T <= 256:
+        raise ValueError(f"the training kernel takes 1 <= T <= 256, got {T}")
+    z_out = torch.empty_like(z)
+    ndt_out = torch.empty_like(ndt)
+    if M * D == 0:
+        return z_out, ndt_out
+    launch = build.bind("slda_gibbs", "slda_gibbs_sweep_launch", _ARGS)
+    with torch.cuda.device(dev):
+        rc = launch(*(t.data_ptr() for t in (
+            tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, nt, eta,
+            z_out, ndt_out)), M, D, N, T, W, float(alpha), float(beta),
+            float(W * beta), float(rho), int(supervised),
+            build.stream_of(dev))
+    build.check_launch("slda_gibbs", rc)
+    launches += 1
+    return z_out, ndt_out

@@ -1,0 +1,73 @@
+"""Kernel B1 on the card: all prediction sweeps in one launch.
+
+`slda_predict_sweeps_cuda` launches `csrc/slda_predict.cu`, which
+replaces the TPU kernel `_predict_kernel` of the reference
+(`repro/kernels/slda_predict.py`); the note at the head of the source
+says what bounds it and what its design does about that.  The plain
+version is `ref.slda_predict_sweeps_chains`.  `launches` counts the
+kernel's launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from . import build
+
+launches = 0
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_ARGS = [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _F, _P]
+
+
+def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
+                             n_burnin, n_samples, ctr_stride=None):
+    """tokens int32 / mask f32 [D, N] shared by all chains; seeds int32
+    [M, D]; z0 int32 [M, D, N]; ndt0 f32 [M, D, T]; phi_t f32 [M, W, T].
+    Returns (ndt_avg [M, D, T], z_final [M, D, N]), on the current stream."""
+    global launches
+    M, W, T = phi_t.shape
+    D, N = tokens.shape
+    dev = tokens.device
+    for name, t, dtype, shape in (
+            ("tokens", tokens, torch.int32, (D, N)),
+            ("mask", mask, torch.float32, (D, N)),
+            ("seeds", seeds, torch.int32, (M, D)),
+            ("z0", z0, torch.int32, (M, D, N)),
+            ("ndt0", ndt0, torch.float32, (M, D, T)),
+            ("phi_t", phi_t, torch.float32, (M, W, T))):
+        build.check_operand(name, t, dtype, shape, dev)
+    if not 1 <= T <= 256:
+        raise ValueError(f"the prediction kernel takes 1 <= T <= 256, got {T}")
+    ndt_avg = torch.empty_like(ndt0)
+    z_out = torch.empty_like(z0)
+    if M * D == 0:
+        return ndt_avg, z_out
+    launch = build.bind("slda_predict", "slda_predict_sweeps_launch", _ARGS)
+    with torch.cuda.device(dev):
+        rc = launch(tokens.data_ptr(), mask.data_ptr(), seeds.data_ptr(),
+                    z0.data_ptr(), ndt0.data_ptr(), phi_t.data_ptr(),
+                    ndt_avg.data_ptr(), z_out.data_ptr(), M, D, N, T, W,
+                    float(alpha), int(n_burnin), int(n_samples),
+                    int(N if ctr_stride is None else ctr_stride),
+                    float(np.float32(1.0 / n_samples)), build.stream_of(dev))
+    build.check_launch("slda_predict", rc)
+    launches += 1
+    return ndt_avg, z_out
+
+
+def counter_uniform_cuda(seeds, ctrs):
+    """counter_uniform of int32 (seeds, ctrs) [n] on the card — the device
+    function the prediction kernel draws with, exposed for its bit test."""
+    n = seeds.numel()
+    for name, t in (("seeds", seeds), ("ctrs", ctrs)):
+        build.check_operand(name, t, torch.int32, (n,), seeds.device)
+    out = torch.empty(n, dtype=torch.float32, device=seeds.device)
+    launch = build.bind("slda_predict", "slda_counter_uniform_launch",
+                        [_P, _P, _P, _I, _P])
+    with torch.cuda.device(seeds.device):
+        rc = launch(seeds.data_ptr(), ctrs.data_ptr(), out.data_ptr(), n,
+                    build.stream_of(seeds.device))
+    build.check_launch("slda_predict", rc)
+    return out
