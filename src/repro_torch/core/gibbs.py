@@ -72,14 +72,15 @@ def phi_hat(state: GibbsState, cfg: SLDAConfig) -> torch.Tensor:
 def train_chain(seed: int, corpus: Corpus, cfg: SLDAConfig, *,
                 device="cuda") -> tuple[GibbsState, SLDAModel]:
     """The full stochastic-EM loop for ONE chain on ONE (sub-)corpus:
-    Gibbs sweeps alternating with the η ridge solve (Eq. 2).  The draws
-    come from the chain's generator seeded from `seed`."""
+    Gibbs sweeps (one per launch, or `cfg.sweeps_per_launch` fused)
+    alternating with the η ridge solve (Eq. 2).  The draws come from the
+    chain's generator seeded from `seed`."""
     from .plan import build_plan
     dev = resolve_device(device)
     corpus = corpus.to(dev)
     gens = rng.chain_generators(seed, 1, dev)
-    z_init, uniforms = rng.train_draws(gens, corpus.n_docs, corpus.max_len,
-                                       cfg.n_topics, cfg.n_iters)
-    state, model = build_plan(corpus, cfg, chained=True).train(z_init,
-                                                              uniforms)
+    z_init, draws = rng.train_draws(gens, corpus.n_docs, corpus.max_len,
+                                    cfg.n_topics, cfg.n_iters,
+                                    cfg.sweeps_per_launch)
+    state, model = build_plan(corpus, cfg, chained=True).train(z_init, draws)
     return state.map(lambda a: a[0]), model.map(lambda a: a[0])

@@ -8,9 +8,10 @@
   weighted-average  M chains; each predicts test AND full train set (for the
                     weights); Eq. (8)-(9) combine
 
-Each algorithm trains all its chains in one chain-batched EM loop (one
-kernel-B2 launch per sweep on the card) and predicts in one chain-batched
-pass (one kernel-B1 launch).  `seed` names the run: every chain draws
+Each algorithm trains all its chains in one chain-batched EM loop (on
+the card, one kernel-B2 launch per sweep, or one kernel-B3 launch per
+`cfg.sweeps_per_launch` sweeps) and predicts in one chain-batched pass
+(one kernel-B1 launch).  `seed` names the run: every chain draws
 from its own generator seeded from (seed, stream, chain) (`core.rng`).
 `timer`, when given, is entered as `timer(phase)` around the "train",
 "predict" and "combine" phases.
@@ -34,12 +35,14 @@ def _no_timer(phase):
 
 # ----------------------------------------------- chain-batched training
 
-def train_chains_keyed(z_init, uniforms, shards: Corpus, cfg: SLDAConfig):
+def train_chains_keyed(z_init, draws, shards: Corpus, cfg: SLDAConfig):
     """Train M independent chains (no communication) from explicit draws:
-    z_init [M, D/M, N] and an iterable of n_iters uniforms [M, D/M, N].
-    shards is [M, D/M, ...] on the draws' device.  Returns
-    (GibbsState, SLDAModel), each with leading chain dim."""
-    return build_plan(shards, cfg).train(z_init, uniforms)
+    z_init [M, D/M, N] and an iterable of the EM loop's draws — n_iters
+    uniforms [M, D/M, N] at sweeps_per_launch=1, else one seed tensor
+    [M, D/M] per fused launch (`rng.train_draws`).  shards is
+    [M, D/M, ...] on the draws' device.  Returns (GibbsState, SLDAModel),
+    each with leading chain dim."""
+    return build_plan(shards, cfg).train(z_init, draws)
 
 
 def train_chains(seed: int, shards: Corpus, cfg: SLDAConfig, *,
@@ -49,10 +52,10 @@ def train_chains(seed: int, shards: Corpus, cfg: SLDAConfig, *,
     dev = resolve_device(device)
     shards = shards.to(dev)
     m, d, n = shards.tokens.shape
-    z_init, uniforms = rng.train_draws(
+    z_init, draws = rng.train_draws(
         rng.chain_generators(seed, m, dev, rng.TRAIN), d, n, cfg.n_topics,
-        cfg.n_iters)
-    return train_chains_keyed(z_init, uniforms, shards, cfg)
+        cfg.n_iters, cfg.sweeps_per_launch)
+    return train_chains_keyed(z_init, draws, shards, cfg)
 
 
 # --------------------------------------------- chain-batched prediction

@@ -1,12 +1,12 @@
 """The random draws of a run, as explicit tensors.
 
 The plan functions take their random numbers as arguments — the initial
-topics, the per-sweep uniforms of training, the initial topics and
-per-document seeds of prediction — so that tests can hand in the
-reference's own draws.  For a standalone run every chain gets its own
-`torch.Generator` on the run's device (Philox on a CUDA device), seeded
-from (seed, stream, chain): a chain's draws do not depend on how many
-chains run beside it.
+topics, the per-sweep uniforms or per-launch document seeds of training,
+the initial topics and per-document seeds of prediction — so that tests
+can hand in the reference's own draws.  For a standalone run every chain
+gets its own `torch.Generator` on the run's device (Philox on a CUDA
+device), seeded from (seed, stream, chain): a chain's draws do not
+depend on how many chains run beside it.
 """
 from __future__ import annotations
 
@@ -36,18 +36,27 @@ def _stack(gens, draw):
 
 
 def train_draws(gens, n_docs: int, max_len: int, n_topics: int,
-                n_iters: int):
-    """(z_init int32 [M, D, N], uniforms): the initial topics and an
-    iterator over the n_iters per-sweep uniform tensors f32 [M, D, N],
-    drawn lazily, one sweep at a time."""
+                n_iters: int, sweeps_per_launch: int = 1):
+    """(z_init int32 [M, D, N], draws): the initial topics and an iterator
+    over the draws of the EM loop, made lazily.  At sweeps_per_launch=1
+    that is one uniform tensor f32 [M, D, N] per sweep (n_iters of them);
+    above, one seed tensor int32 [M, D] in [0, 2^31 - 1) per fused launch
+    (⌈n_iters / sweeps_per_launch⌉ of them, the remainder launch
+    included), as the reference draws them."""
     dev = gens[0].device
     shape = (n_docs, max_len)
     z_init = _stack(gens, lambda g: torch.randint(
         0, n_topics, shape, generator=g, device=dev, dtype=torch.int32))
-    uniforms = (_stack(gens, lambda g: torch.rand(shape, generator=g,
-                                                  device=dev))
-                for _ in range(n_iters))
-    return z_init, uniforms
+    if sweeps_per_launch > 1:
+        draws = (_stack(gens, lambda g: torch.randint(
+            0, INT32_MAX, (n_docs,), generator=g, device=dev,
+            dtype=torch.int32))
+            for _ in range(-(-n_iters // sweeps_per_launch)))
+    else:
+        draws = (_stack(gens, lambda g: torch.rand(shape, generator=g,
+                                                   device=dev))
+                 for _ in range(n_iters))
+    return z_init, draws
 
 
 def predict_draws(gens, n_docs: int, max_len: int, n_topics: int):

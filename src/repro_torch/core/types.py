@@ -19,7 +19,8 @@ class SLDAConfig:
     """Hyperparameters of supervised LDA (McAuliffe & Blei 2008 notation).
 
     Same fields and defaults as the reference's `SLDAConfig`.  This port
-    runs the padded, one-launch-per-sweep, dense-sampler path; the other
+    runs the padded, dense-sampler path, one sweep per launch
+    (`sweeps_per_launch=1`, kernel B2) or several (kernel B3); the other
     settings raise until the ROADMAP item that brings them lands.
     `use_pallas` is accepted and ignored: the tensors' device decides
     between the CUDA kernels and their plain versions.
@@ -53,10 +54,6 @@ class SLDAConfig:
     sparse_topic_cap: int = 32
 
     def __post_init__(self):
-        if self.sweeps_per_launch > 1:
-            raise NotImplementedError(
-                "sweeps_per_launch > 1 (fused training) comes with ROADMAP "
-                "queue A item 7 / kernel B3")
         if self.length_buckets > 0:
             raise NotImplementedError(
                 "length_buckets > 0 (ragged execution) comes with ROADMAP "
@@ -174,26 +171,48 @@ def counts_from_assignments(tokens: Tensor, mask: Tensor, z: Tensor,
 
 
 def apply_count_deltas(ntw: Tensor, nt: Tensor, tokens: Tensor,
-                       mask: Tensor, z_old: Tensor, z_new: Tensor):
-    """Exact incremental (ntw, nt) refresh from one sweep's reassignments,
-    in the reference's dense form: −1 at (z_old, w) and +1 at (z_new, w)
-    for every real token whose topic changed.  ±1 float32 updates are
-    lossless below 2^24.  Shapes as `counts_from_assignments`, with
-    ntw [..., T, W] and nt [..., T]; returns new tensors."""
+                       mask: Tensor, z_old: Tensor, z_new: Tensor,
+                       cap: int | None = None):
+    """Exact incremental (ntw, nt) refresh from one sweep's reassignments:
+    −1 at (z_old, w) and +1 at (z_new, w) for every real token whose topic
+    changed.  ±1 float32 updates are lossless below 2^24, so both forms
+    below give the same bits.  Shapes as `counts_from_assignments`, with
+    ntw [..., T, W] and nt [..., T]; returns new tensors.
+
+    The reference's two forms: the dense scatter over all D·N positions
+    (`cap` None or 0, the default on both devices: on the H100 it beat
+    the compaction, see PERF.md), and the changed-token compaction, which
+    gathers the changed positions of each chain into `cap` slots and
+    scatters only those.  If a chain changed more than `cap` tokens the
+    dense form runs: deciding that reads one count back to the host.  The
+    scatters are `index_add_` (atomic adds on CUDA), exact in any order."""
     lead, (D, N) = tokens.shape[:-2], tokens.shape[-2:]
     T, W = ntw.shape[-2:]
-    B = math.prod(lead)
-    changed = (mask * (z_new != z_old).to(mask.dtype)).reshape(B, D * N)
-    b = torch.arange(B, device=tokens.device)[:, None].expand(B, D * N)
-    w = tokens.reshape(B, D * N).long()
-    zo = z_old.reshape(B, D * N).long()
-    zn = z_new.reshape(B, D * N).long()
-    ntw2 = ntw.reshape(B, T, W).clone()
-    ntw2.index_put_((b, zo, w), -changed, accumulate=True)
-    ntw2.index_put_((b, zn, w), changed, accumulate=True)
-    add = torch.zeros((B, T), dtype=nt.dtype, device=nt.device)
-    add.index_put_((b, zn), changed, accumulate=True)
-    sub = torch.zeros((B, T), dtype=nt.dtype, device=nt.device)
-    sub.index_put_((b, zo), changed, accumulate=True)
-    nt2 = nt.reshape(B, T) + add - sub
+    B, total = math.prod(lead), D * N
+    dev = tokens.device
+    changed = (mask * (z_new != z_old).to(mask.dtype)).reshape(B, total)
+    cap = min(cap or 0, total)
+    if 0 < cap < total and int((changed > 0).sum(-1).max()) <= cap:
+        # the changed positions of all chains in B·cap slots; the empty
+        # slots carry weight 0 at distinct positions, so that no cell
+        # collects a pile of zero updates
+        idx = torch.nonzero_static(changed > 0, size=B * cap, fill_value=-1)
+        valid = idx[:, 0] >= 0
+        slot = torch.arange(B * cap, device=dev)
+        at = torch.where(valid, idx[:, 0] * total + idx[:, 1],
+                         slot // cap * total + slot % cap)
+        wt = valid.to(ntw.dtype)
+    else:
+        at = torch.arange(B * total, device=dev)
+        wt = changed.reshape(-1)
+    b = at // total
+    w = tokens.reshape(-1)[at].long()
+    zo = z_old.reshape(-1)[at].long()
+    zn = z_new.reshape(-1)[at].long()
+    ntw2 = ntw.reshape(B * T * W).clone()
+    ntw2.index_add_(0, (b * T + zo) * W + w, -wt)
+    ntw2.index_add_(0, (b * T + zn) * W + w, wt)
+    nt2 = nt.reshape(B * T).clone()
+    nt2.index_add_(0, b * T + zn, wt)
+    nt2.index_add_(0, b * T + zo, -wt)
     return ntw2.reshape(ntw.shape), nt2.reshape(nt.shape)

@@ -1,6 +1,7 @@
 """The sampler kernels of the port and their plain versions.
 
   slda_gibbs    — kernel B2: one supervised training sweep (CUDA, sm_90a)
+  slda_train    — kernel B3: all training sweeps of one fused launch
   slda_predict  — kernel B1: all prediction sweeps in one launch
   ref           — the plain PyTorch versions (the CPU route)
   ops           — the device routing the core calls

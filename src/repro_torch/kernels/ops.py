@@ -1,15 +1,15 @@
-"""The two sampler operations the core calls, routed by device.
+"""The three sampler operations the core calls, routed by device.
 
 A CUDA tensor goes to the hand-written kernel (`slda_gibbs`,
-`slda_predict`), or the kernel raises; a CPU tensor goes to the plain
-version in `ref`.  There is no other route and no fallback.  Both ops
-are the reference's `chain_axis=True` forms and keep its layouts: tables
-come in as `[M, T, W]` and are transposed to the row-gather `[M, W, T]`
-layout here, inside the op.
+`slda_train`, `slda_predict`), or the kernel raises; a CPU tensor goes to
+the plain version in `ref`.  There is no other route and no fallback.
+The ops are the reference's `chain_axis=True` forms and keep its
+layouts: tables come in as `[M, T, W]` and are transposed to the
+row-gather `[M, W, T]` layout here, inside the op.
 """
 from __future__ import annotations
 
-from . import ref, slda_gibbs, slda_predict
+from . import ref, slda_gibbs, slda_predict, slda_train
 
 
 def _route(t):
@@ -37,6 +37,26 @@ def slda_gibbs_sweep(tokens, mask, uniforms, z, ndt, y, inv_len, ntw, nt,
             tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, nt, eta), **kw)
     return ref.ref_slda_gibbs_sweep_chains(tokens, mask, uniforms, z, ndt, y,
                                            inv_len, ntw_t, nt, eta, **kw)
+
+
+def slda_train_sweeps(tokens, mask, z0, ndt0, y, inv_len, ntw, nt, eta,
+                      seeds, *, alpha, beta, rho, n_sweeps, doc_block,
+                      supervised=True, product_form=False, ctr_stride=None):
+    """`n_sweeps` training sweeps for M chains in one fused launch, each
+    doc block refreshing a private copy of its chain's table between
+    sweeps (delayed counts across blocks).  tokens/mask/z0 [M, D, N];
+    ndt0 [M, D, T]; y/inv_len [M, D]; ntw [M, T, W]; nt/eta [M, T];
+    seeds int32 [M, D].  Returns (z_final, ndt_final); the caller
+    refreshes the global tables from (z0, z_final)."""
+    ntw_t = ntw.transpose(-1, -2)
+    kw = dict(alpha=alpha, beta=beta, rho=rho, n_sweeps=n_sweeps,
+              doc_block=doc_block, supervised=supervised,
+              product_form=product_form, ctr_stride=ctr_stride)
+    if _route(tokens):
+        return slda_train.slda_train_sweeps_cuda(*_dense(
+            tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta), **kw)
+    return ref.slda_train_sweeps_chains(tokens, mask, seeds, z0, ndt0, y,
+                                        inv_len, ntw_t, nt, eta, **kw)
 
 
 def slda_predict_sweeps(tokens, mask, z0, ndt0, phi, seeds, *, alpha,

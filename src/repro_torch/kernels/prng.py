@@ -1,4 +1,5 @@
-"""The counter-hash PRNG of the prediction sampler, bit for bit.
+"""The counter-hash PRNG of the prediction and fused training samplers,
+bit for bit.
 
 `counter_uniform(seed, ctr)` is the murmur3-finalizer mix of the
 reference (`repro.kernels.slda_predict.counter_uniform`): uint32
@@ -40,6 +41,8 @@ def predict_uniforms(seeds, n_sweeps: int, n_tokens: int,
     """The [D, n_sweeps, N] uniforms the prediction kernel derives on the
     fly, materialized for tests: token n of sweep s of document d draws
     counter_uniform(seeds[d], s·ctr_stride + n) (ctr_stride defaults to N).
+    The fused training kernel (B3) uses the same layout, with s the sweep
+    index inside the launch (the reference's `train_uniforms`).
     """
     if ctr_stride is None:
         ctr_stride = n_tokens
@@ -49,3 +52,4 @@ def predict_uniforms(seeds, n_sweeps: int, n_tokens: int,
            * ctr_stride
            + torch.arange(n_tokens, dtype=torch.int32, device=dev)[None, :])
     return counter_uniform(seeds[:, None, None], ctr[None])
+

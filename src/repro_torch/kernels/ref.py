@@ -1,12 +1,14 @@
-"""Plain PyTorch versions of the two sampler kernels.
+"""Plain PyTorch versions of the three sampler kernels.
 
 They are the kernels' semantics written as tensor code: the CPU route of
 `kernels.ops`, and what `chip_smoke.py` holds the CUDA kernels against on
 the card.  All documents advance in lockstep, one token position at a
 time (the dependence along a document is sequential); chains are folded
 into the document-row axis around one stacked `[M·W, T]` table with
-per-chain token-id offsets `w + c·W`.  The operation order is the
-reference's (`repro.kernels.ref`), and the prefix sum is `p @ triu(T)`.
+per-chain token-id offsets `w + c·W` (the fused training sweeps fold
+chain × doc block around `[M·B·W, T]`, one private table per block).
+The operation order is the reference's (`repro.kernels.ref`), and the
+prefix sum is `p @ triu(T)`.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.mathutil import upper_tri_ones
-from .prng import counter_uniform
+from .prng import counter_uniform, predict_uniforms
 
 
 def _draw(p, u, tri_u):
@@ -38,9 +40,13 @@ def _fold_chains(tokens, table_t):
 
 def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
                 nt_rows, eta_rows, alpha, beta, rho, vocab_size,
-                supervised):
+                supervised, product_form=False):
     """One supervised sweep over R document rows in lockstep against the
-    sweep-frozen table (AD-LDA delayed counts); nt/eta are per row [R, T]."""
+    sweep-frozen table (AD-LDA delayed counts); nt/eta are per row [R, T].
+    The log form exponentiates the sum of three logs and the Gaussian
+    term; the product form (fused multi-sweep launches) multiplies the
+    three factors and one exp of the Gaussian term — the same
+    categorical distribution."""
     R, N = tok_f.shape
     T = ndt_f.shape[-1]
     iota = torch.arange(T, device=tok_f.device)[None, :]
@@ -55,13 +61,21 @@ def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
         old = (iota == zo).to(torch.float32) * m[:, None]
         ndt = ndt - old
         s = s - eta_rows.gather(1, zo)[:, 0] * m
-        logp = (torch.log(ndt + alpha)
-                + torch.log(table_t[w] - old + beta)
-                - torch.log(nt_rows - old + w_beta))
-        if supervised:
-            mu_t = (s[:, None] + eta_rows) * il_f[:, None]
-            logp = logp - 0.5 * (y_f[:, None] - mu_t) ** 2 / rho
-        p = torch.exp(logp - logp.max(-1, keepdim=True).values)
+        if product_form:
+            p = (ndt + alpha) * (table_t[w] - old + beta) \
+                / (nt_rows - old + w_beta)
+            if supervised:
+                mu_t = (s[:, None] + eta_rows) * il_f[:, None]
+                g = -0.5 * (y_f[:, None] - mu_t) ** 2 / rho
+                p = p * torch.exp(g - g.max(-1, keepdim=True).values)
+        else:
+            logp = (torch.log(ndt + alpha)
+                    + torch.log(table_t[w] - old + beta)
+                    - torch.log(nt_rows - old + w_beta))
+            if supervised:
+                mu_t = (s[:, None] + eta_rows) * il_f[:, None]
+                logp = logp - 0.5 * (y_f[:, None] - mu_t) ** 2 / rho
+            p = torch.exp(logp - logp.max(-1, keepdim=True).values)
         z_new = torch.where(m > 0, _draw(p, u, tri_u), z_old)
         zn = z_new.long()[:, None]
         ndt = ndt + (iota == zn).to(torch.float32) * m[:, None]
@@ -99,6 +113,81 @@ def ref_slda_gibbs_sweep(tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t,
                             ntw_t, nt, eta)),
         alpha, beta, rho, supervised)
     return z2[0], ndt2[0]
+
+
+def _pad_docs(a, pad):
+    """`pad` zero documents after the D of a chain-batched [M, D, ...]."""
+    return torch.nn.functional.pad(a, (0, 0) * (a.dim() - 2) + (0, pad)) \
+        if pad else a
+
+
+def ref_slda_train_sweeps_chains(tokens, mask, uniforms, z0, ndt0, y,
+                                 inv_len, ntw_t, nt, eta, alpha, beta, rho,
+                                 supervised: bool, doc_block: int, *,
+                                 product_form: bool = False):
+    """Chain-batched fused training with EXPLICIT uniforms (plain B3).
+
+    tokens/mask/z0 [M, D, N]; uniforms [M, D, S, N] (S sweeps); ndt0
+    [M, D, T]; y/inv_len [M, D]; ntw_t [M, W, T] (row-gather layout);
+    nt/eta [M, T].  Returns (z_final [M, D, N] int32, ndt_final
+    [M, D, T]); the caller refreshes the global tables from (z0, z_final).
+
+    D is padded to B·doc_block with empty documents, as the reference
+    pads it: the block partition is part of the semantics.  Chain × doc
+    block rows fold around one stacked [M·B·W, T] table: row r = c·D + d
+    lies in block k = r // doc_block, whose private copy of chain c's
+    table sits at rows k·W.  Every sweep reads the block's sweep-frozen
+    copy and nt; between sweeps (not after the last) the block's own ±1
+    reassignments land on its copy and nt grows by the column sum of its
+    ndt deltas."""
+    M, D, S, N = uniforms.shape
+    W, T = ntw_t.shape[-2:]
+    pad = (-D) % doc_block
+    tokens, mask, uniforms, z0, ndt0, y, inv_len = (
+        _pad_docs(a, pad) for a in (tokens, mask, uniforms, z0, ndt0, y,
+                                    inv_len))
+    R = M * (D + pad)
+    copies = R // doc_block
+    block = torch.arange(R, device=tokens.device) // doc_block
+    tok_f = tokens.reshape(R, N).long() + (block * W)[:, None]
+    mask_f, u_f = mask.reshape(R, N), uniforms.reshape(R, S, N)
+    table = ntw_t[:, None].expand(M, copies // M, W, T).reshape(
+        copies * W, T).clone()
+    nt_loc = nt[:, None].expand(M, copies // M, T).reshape(copies, T)
+    eta_rows = eta[:, None].expand(M, D + pad, T).reshape(R, T)
+    z, ndt = z0.reshape(R, N), ndt0.reshape(R, T)
+    y_f, il_f = y.reshape(R), inv_len.reshape(R)
+    for s in range(S):
+        z_new, ndt_new = _gibbs_rows(
+            tok_f, mask_f, u_f[:, s], z, ndt, y_f, il_f, table,
+            nt_loc[block], eta_rows, alpha, beta, rho, W, supervised,
+            product_form)
+        if s < S - 1:
+            changed = mask_f * (z_new != z).to(mask_f.dtype)
+            table.index_put_((tok_f, z.long()), -changed, accumulate=True)
+            table.index_put_((tok_f, z_new.long()), changed, accumulate=True)
+            nt_loc = nt_loc + (ndt_new - ndt).reshape(
+                copies, doc_block, T).sum(1)
+        z, ndt = z_new, ndt_new
+    return (z.reshape(M, D + pad, N)[:, :D],
+            ndt.reshape(M, D + pad, T)[:, :D])
+
+
+def slda_train_sweeps_chains(tokens, mask, seeds, z0, ndt0, y, inv_len,
+                             ntw_t, nt, eta, *, alpha, beta, rho, n_sweeps,
+                             doc_block, supervised=True, product_form=False,
+                             ctr_stride=None):
+    """Plain B3: the fused training launch under the counter-hash
+    uniforms u = counter_uniform(seeds[c, d], s·ctr_stride + n) that the
+    kernel derives per token (`prng.predict_uniforms`), fed through
+    `ref_slda_train_sweeps_chains`.  Shapes as there, with seeds int32
+    [M, D] in place of the uniforms."""
+    M, D, N = tokens.shape
+    u = predict_uniforms(seeds.reshape(M * D), n_sweeps, N, ctr_stride)
+    return ref_slda_train_sweeps_chains(
+        tokens, mask, u.reshape(M, D, n_sweeps, N), z0, ndt0, y, inv_len,
+        ntw_t, nt, eta, alpha, beta, rho, supervised, doc_block,
+        product_form=product_form)
 
 
 def _predict_rows(tok_f, mask_f, z0_f, ndt0_f, table_t, alpha, n_burnin,

@@ -16,7 +16,8 @@ from repro.kernels.slda_gibbs import slda_gibbs_sweep_pallas
 from repro.kernels.slda_predict import (slda_predict_sweeps_chains_jnp,
                                         slda_predict_sweeps_chains_pallas)
 from repro_torch.core.types import counts_from_assignments
-from repro_torch.kernels import build, ops, ref, slda_gibbs, slda_predict
+from repro_torch.kernels import (build, ops, ref, slda_gibbs, slda_predict,
+                                 slda_train)
 
 MISMATCH_MAX = 1e-3
 ALPHA, BETA, RHO = 0.1, 0.01, 0.5
@@ -195,14 +196,17 @@ def test_cuda_wrappers_raise_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("this machine has a card")
     a = [torch.from_numpy(x) for x in _gibbs_inputs(0, 1, 4, 8, 20, 6)]
-    n_g, n_p = slda_gibbs.launches, slda_predict.launches
+    n = (slda_gibbs.launches, slda_predict.launches, slda_train.launches)
     with pytest.raises(RuntimeError, match="CUDA"):
         slda_gibbs.slda_gibbs_sweep_cuda(*a, alpha=ALPHA, beta=BETA, rho=RHO)
     p = [torch.from_numpy(x) for x in _predict_inputs(0, 1, 4, 8, 20, 6)]
     with pytest.raises(RuntimeError, match="CUDA"):
         slda_predict.slda_predict_sweeps_cuda(*p, alpha=ALPHA, n_burnin=1,
                                               n_samples=1)
-    assert (slda_gibbs.launches, slda_predict.launches) == (n_g, n_p)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        slda_train.slda_train_sweeps_cuda(*_train_args(a), **_TRAIN_KW)
+    assert (slda_gibbs.launches, slda_predict.launches,
+            slda_train.launches) == n
 
 
 def test_cuda_wrapper_checks_operands():
@@ -210,6 +214,33 @@ def test_cuda_wrapper_checks_operands():
     a[3] = a[3].long()                          # z must be int32
     with pytest.raises(ValueError, match="z: dtype"):
         slda_gibbs.slda_gibbs_sweep_cuda(*a, alpha=ALPHA, beta=BETA, rho=RHO)
+
+
+_TRAIN_KW = dict(alpha=ALPHA, beta=BETA, rho=RHO, n_sweeps=2, doc_block=8)
+
+
+def _train_args(gibbs_args):
+    """B3's operands from a B2 input set: seeds in place of the uniforms."""
+    tok, mask, _, z, ndt, y, inv_len, ntw_t, nt, eta = gibbs_args
+    seeds = torch.arange(tok.shape[0] * tok.shape[1],
+                         dtype=torch.int32).reshape(tok.shape[:2])
+    return [tok, mask, seeds, z, ndt, y, inv_len, ntw_t, nt, eta]
+
+
+def test_train_cuda_wrapper_checks_operands():
+    a = [torch.from_numpy(x) for x in _gibbs_inputs(0, 2, 5, 8, 20, 6)]
+    t = _train_args(a)
+    t[2] = t[2].long()                          # seeds must be int32
+    with pytest.raises(ValueError, match="seeds: dtype"):
+        slda_train.slda_train_sweeps_cuda(*t, **_TRAIN_KW)
+    t = _train_args(a)
+    t[7] = t[7][:1]                             # one table per chain
+    with pytest.raises(ValueError, match="ntw_t: shape"):
+        slda_train.slda_train_sweeps_cuda(*t, **_TRAIN_KW)
+    t = _train_args(a)
+    t[4] = t[4].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="ndt0: not contiguous"):
+        slda_train.slda_train_sweeps_cuda(*t, **_TRAIN_KW)
 
 
 def test_ops_refuse_other_devices():
@@ -228,7 +259,8 @@ def test_build_targets_hopper_without_fast_math():
 
 @pytest.mark.parametrize("module,stem,fn", [
     (slda_predict, "slda_predict", "slda_predict_sweeps_launch"),
-    (slda_gibbs, "slda_gibbs", "slda_gibbs_sweep_launch")])
+    (slda_gibbs, "slda_gibbs", "slda_gibbs_sweep_launch"),
+    (slda_train, "slda_train", "slda_train_sweeps_launch")])
 
 def test_ctypes_argtypes_match_the_c_launchers(module, stem, fn):
     """The ctypes argument list of each launcher matches its C prototype

@@ -44,12 +44,21 @@ def test_config_fields_and_defaults_match_reference():
     assert port == ref
 
 
-@pytest.mark.parametrize("kw", [dict(sweeps_per_launch=2),
-                                dict(length_buckets=4),
+@pytest.mark.parametrize("kw", [dict(length_buckets=4),
                                 dict(sampler_mode="sparse")])
 def test_config_paths_not_ported_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         types.SLDAConfig(**kw)
+
+
+def test_fused_training_config_builds():
+    """sweeps_per_launch > 1 is ported (kernel B3); the ragged and sparse
+    settings still raise beside it."""
+    cfg = types.SLDAConfig(sweeps_per_launch=8)
+    assert cfg.sweeps_per_launch == 8 and cfg.product_form_sweeps
+    for kw in (dict(length_buckets=4), dict(sampler_mode="sparse")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            types.SLDAConfig(sweeps_per_launch=8, **kw)
 
 
 @pytest.mark.parametrize("chains", [None, 3])
