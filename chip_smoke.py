@@ -15,13 +15,29 @@ Phases, one JSON line each:
   B1 / B2 / B3   each kernel against its plain version at the slice's
                  shapes and at T = 128 (B3 also in log form): draw
                  mismatch over real tokens, exact counts, times, bound
+  B1_sparse / B2_sparse / B3_sparse
+                 each kernel's sparse-draw instantiation (kernel B4
+                 inside it) against its plain version, at the slice's
+                 shape with the default cap (clamped to T) and with cap 4,
+                 and at T = 128 with cap 32: draw mismatch, exact counts,
+                 the share of real tokens that took stage 2 (from the
+                 plain version), the sparse and the dense kernel's times
+                 on the same inputs, plain time, bound
+  B4             the sparse draw's device function alone against its
+                 plain version, on the rows of one training sweep
+  small_shapes   B1, B2 and B3, dense and sparse, against their plain
+                 versions at small shapes over T = 3, 16, 40, 128 and 256
+                 (T off the 16- and 32-topic grids, K = 1, 2, 4, 8)
   end_to_end     the paper's four algorithms at the slice's configuration
                  (`repro_torch.fig6_mdna`) through their entry points,
                  with the kernels' launch counts over that run
   end_to_end_fused  the same at sweeps_per_launch = 8 (kernel B3)
+  end_to_end_sparse  the same with sampler_mode="sparse", at
+                 sweeps_per_launch 1 and 8: every launch a sparse one
   profile        one Simple Average run under torch.profiler, at each of
-                 the two settings: device busy time, idle share and the
-                 kernels that take it
+                 the two settings and sparse at 8: device busy time, idle
+                 share and the kernels that take it (for sparse, also
+                 where the topic-index build's kernels rank)
 
 then the kernels line, the card line from nvidia-smi, and last
 {"ok": true, "device": {...}}.
@@ -46,7 +62,20 @@ PEAK_FP32_S = 67e12
 # Gaussian term's six operations, max, −max, exp, ×, scan add, compare,
 # add back)
 OPS_PER_TOPIC = {"B1": 7, "B2": 25, "B3_log": 25, "B3_product": 21}
+# the dense draw's share of those: the scan add and the compare
+DENSE_DRAW_OPS = 2
 MISMATCH_MAX = 1e-3
+
+
+def sparse_draw_ops(t: int, cap: int, stage2_share: float) -> float:
+    """float32 operations of one sparse two-stage draw: the gather-scale,
+    prefix and compare of the cap-long bucket (3·cap), the residual's
+    1 − occm, product and in-block prefix (3·T), the block totals' prefix
+    and compare (2·nb), and for the share of tokens that take stage 2 the
+    compares inside the picked block and two subtractions."""
+    blk = min(16, t)
+    nb = -(-t // blk)
+    return 3 * cap + 3 * t + 2 * nb + stage2_share * (blk + 2)
 
 
 def emit(obj) -> None:
@@ -74,7 +103,7 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.core.plan import build_plan
     from repro_torch.kernels import (build, ref, slda_gibbs, slda_predict,
-                                     slda_train)
+                                     slda_train, sparse)
     from repro_torch.kernels.prng import counter_uniform
 
     dev = resolve_device("cuda")       # raises if TF32 were on
@@ -111,8 +140,9 @@ def main() -> int:
     emit({"phase": "counter_hash", "pairs": n, "mismatches": bad})
     check(bad == 0, "counter hash differs from the torch version")
 
-    def event_ms(fn, reps):
-        fn()
+    def event_ms(fn, reps, warm=True):
+        if warm:
+            fn()
         torch.cuda.synchronize()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         s.record()
@@ -276,29 +306,317 @@ def main() -> int:
         check(exact, f"B3 {label}: ndt differs from counts of z")
         check(refresh_exact, f"B3 {label}: count refresh differs")
 
+    # ---- the sparse draw (kernel B4) inside B1 / B2 / B3.  Each row runs
+    # the kernel's sparse instantiation and its plain version on identical
+    # inputs and the topic index the ops would build from the same table;
+    # the dense instantiation is timed on the same inputs.  The plain
+    # version tallies the real tokens that took stage 2.
+    sparse_shapes = (("slice", T0, cfg.sparse_topic_cap),
+                     ("slice_cap4", T0, 4), ("T128", 128, 32))
+
+    def index_of(table_t, cap):
+        return tuple(a.contiguous()
+                     for a in sparse.build_topic_index(table_t, cap))
+
+    def tallied(fn):
+        """fn() and the share of its plain sparse draws that took stage 2."""
+        ref.sparse_tally.update(tokens=0, stage2=0)
+        out = fn()
+        tokens = float(ref.sparse_tally["tokens"])
+        return out, float(ref.sparse_tally["stage2"]) / max(tokens, 1.0)
+
+    for label, t, cap in sparse_shapes:
+        d = both[0].shape[0] if t == T0 else 256
+        tokens, mask = both[0][:d].contiguous(), both[1][:d].contiguous()
+        phi_t = rand_table(M, t).transpose(1, 2).contiguous()
+        index = index_of(phi_t, cap)
+        z0 = torch.randint(0, t, (M,) + tuple(tokens.shape), **int32)
+        sd = torch.randint(0, 2 ** 31 - 1, (M, d), **int32)
+        ndt0, _, _ = counts_from_assignments(
+            tokens.expand(M, -1, -1), mask.expand(M, -1, -1), z0, t, W)
+        real = float(mask.sum()) * M
+        a = (tokens, mask, sd, z0, ndt0, phi_t)
+        one = dict(alpha=cfg.alpha, n_burnin=0, n_samples=1)
+        avg_k, z_k = slda_predict.slda_predict_sweeps_cuda(
+            *a, topic_index=index, **one)
+        (avg_p, z_p), share = tallied(lambda: ref.slda_predict_sweeps_chains(
+            *a, topic_index=index, **one))
+        mis = float(((z_k != z_p) & (mask > 0)).sum()) / real
+        err = float((avg_k - avg_p).abs().max())
+        recount, _, _ = counts_from_assignments(
+            tokens.expand(M, -1, -1), mask.expand(M, -1, -1), z_k, t, W)
+        exact = bool(torch.equal(recount, avg_k))
+        full = dict(alpha=cfg.alpha, n_burnin=cfg.n_pred_burnin,
+                    n_samples=cfg.n_pred_samples)
+        ms = event_ms(lambda: slda_predict.slda_predict_sweeps_cuda(
+            *a, topic_index=index, **full), 5)
+        dense_ms = event_ms(lambda: slda_predict.slda_predict_sweeps_cuda(
+            *a, **full), 5)
+        plain = event_ms(lambda: ref.slda_predict_sweeps_chains(
+            *a, topic_index=index, **full), 1, warm=False)
+        steps = real * (cfg.n_pred_burnin + cfg.n_pred_samples)
+        k_cap = index[0].shape[-1]
+        b_ms, b_by = bound_ms(
+            list(a) + list(index) + [avg_k, z_k],
+            ((OPS_PER_TOPIC["B1"] - DENSE_DRAW_OPS) * t
+             + sparse_draw_ops(t, k_cap, share)) * steps)
+        row = {"phase": "B1_sparse", "shape": label, "M": M, "D": d,
+               "N": tokens.shape[1], "T": t, "W": W, "cap": k_cap,
+               "real_tokens": real, "draw_mismatch": mis,
+               "one_sweep_max_abs_err": err, "counts_exact": exact,
+               "stage2_share": share, "ms": ms, "dense_ms": dense_ms,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        check(mis <= MISMATCH_MAX, f"B1_sparse {label}: draw mismatch {mis}")
+        check(exact, f"B1_sparse {label}: ndt differs from counts of z")
+
+    for label, t, cap in sparse_shapes:
+        docs = train.n_docs if t == T0 else 1024
+        sh = partition(train.map(lambda x: x[:docs]), M)
+        d = sh.n_docs
+        z = torch.randint(0, t, tuple(sh.tokens.shape), **int32)
+        ndt, ntw, nt = counts_from_assignments(sh.tokens, sh.mask, z, t, W)
+        ntw_t = ntw.transpose(1, 2).contiguous()
+        index = index_of(ntw_t, cap)
+        eta = torch.randn((M, t), device=dev, generator=gen) * 2.0
+        u = torch.rand(tuple(sh.tokens.shape), device=dev, generator=gen)
+        inv_len = 1.0 / sh.mask.sum(-1).clamp(min=1.0)
+        a = (sh.tokens, sh.mask, u, z, ndt, sh.y, inv_len, ntw_t, nt, eta)
+        kw = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho,
+                  supervised=True)
+        z_k, ndt_k = slda_gibbs.slda_gibbs_sweep_cuda(
+            *a, topic_index=index, **kw)
+        (z_p, ndt_p), share = tallied(lambda: ref.ref_slda_gibbs_sweep_chains(
+            *a, topic_index=index, **kw))
+        real = float(sh.mask.sum())
+        mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
+        err = float((ndt_k - ndt_p).abs().max())
+        recount, _, _ = counts_from_assignments(sh.tokens, sh.mask, z_k, t,
+                                                W)
+        exact = bool(torch.equal(recount, ndt_k))
+        ms = event_ms(lambda: slda_gibbs.slda_gibbs_sweep_cuda(
+            *a, topic_index=index, **kw), 20)
+        dense_ms = event_ms(lambda: slda_gibbs.slda_gibbs_sweep_cuda(
+            *a, **kw), 20)
+        plain = event_ms(lambda: ref.ref_slda_gibbs_sweep_chains(
+            *a, topic_index=index, **kw), 1, warm=False)
+        k_cap = index[0].shape[-1]
+        b_ms, b_by = bound_ms(
+            list(a) + list(index) + [z_k, ndt_k],
+            ((OPS_PER_TOPIC["B2"] - DENSE_DRAW_OPS) * t
+             + sparse_draw_ops(t, k_cap, share)) * real)
+        row = {"phase": "B2_sparse", "shape": label, "M": M, "D": d,
+               "N": sh.max_len, "T": t, "W": W, "cap": k_cap,
+               "real_tokens": real, "draw_mismatch": mis,
+               "max_abs_err": err, "counts_exact": exact,
+               "stage2_share": share, "ms": ms, "dense_ms": dense_ms,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        rows.setdefault("B2_sparse", row)
+        check(mis <= MISMATCH_MAX, f"B2_sparse {label}: draw mismatch {mis}")
+        check(exact, f"B2_sparse {label}: ndt differs from counts of z")
+        if label == "slice_cap4":
+            # the rows of this sweep for the device function alone (B4):
+            # every real token's word, its chain's index row, and weights
+            # shaped like a sweep's (mass on the word's occupied topics)
+            b4_in = (sh.tokens, sh.mask, ntw_t, index)
+
+    for label, t, cap in sparse_shapes:
+        docs = train.n_docs if t == T0 else 1024
+        sh = partition(train.map(lambda x: x[:docs]), M)
+        d = sh.n_docs
+        z = torch.randint(0, t, tuple(sh.tokens.shape), **int32)
+        ndt, ntw, nt = counts_from_assignments(sh.tokens, sh.mask, z, t, W)
+        ntw_t = ntw.transpose(1, 2).contiguous()
+        index = index_of(ntw_t, cap)            # launch-frozen
+        eta = torch.randn((M, t), device=dev, generator=gen) * 2.0
+        sd = torch.randint(0, 2 ** 31 - 1, (M, d), **int32)
+        inv_len = 1.0 / sh.mask.sum(-1).clamp(min=1.0)
+        db = build_plan(sh, cfg).train_doc_block(d)
+        a = (sh.tokens, sh.mask, sd, z, ndt, sh.y, inv_len, ntw_t, nt, eta)
+        kw = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho, n_sweeps=8,
+                  doc_block=db, supervised=True, product_form=True)
+        z_k, ndt_k = slda_train.slda_train_sweeps_cuda(
+            *a, topic_index=index, **kw)
+        (z_p, ndt_p), share = tallied(lambda: ref.slda_train_sweeps_chains(
+            *a, topic_index=index, **kw))
+        real = float(sh.mask.sum())
+        mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
+        err = float((ndt_k - ndt_p).abs().max())
+        recount, _, _ = counts_from_assignments(sh.tokens, sh.mask, z_k, t,
+                                                W)
+        exact = bool(torch.equal(recount, ndt_k))
+        ms = event_ms(lambda: slda_train.slda_train_sweeps_cuda(
+            *a, topic_index=index, **kw), 10)
+        dense_ms = event_ms(lambda: slda_train.slda_train_sweeps_cuda(
+            *a, **kw), 10)
+        plain = event_ms(lambda: ref.slda_train_sweeps_chains(
+            *a, topic_index=index, **kw), 1, warm=False)
+        copies = M * -(-d // db)
+        k_cap = index[0].shape[-1]
+        b_ms, b_by = bound_ms(
+            list(a) + list(index) + [z_k, ndt_k],
+            ((OPS_PER_TOPIC["B3_product"] - DENSE_DRAW_OPS) * t
+             + sparse_draw_ops(t, k_cap, share)) * real * 8,
+            extra_bytes=copies * W * t * 4)
+        row = {"phase": "B3_sparse", "shape": label, "M": M, "D": d,
+               "N": sh.max_len, "T": t, "W": W, "cap": k_cap,
+               "doc_block": db, "sweeps": 8, "product_form": True,
+               "real_tokens": real, "draw_mismatch": mis,
+               "max_abs_err": err, "counts_exact": exact,
+               "stage2_share": share, "ms": ms, "dense_ms": dense_ms,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        check(mis <= MISMATCH_MAX, f"B3_sparse {label}: draw mismatch {mis}")
+        check(exact, f"B3_sparse {label}: ndt differs from counts of z")
+
+    # ---- B4 alone: the device function on the rows of one sweep at the
+    # slice's shape with cap 4, and at T = 128 with cap 32
+    for label, t, cap in (("slice_cap4", T0, 4), ("T128", 128, 32)):
+        if t == T0:
+            tok, msk, table, index = b4_in
+        else:
+            sh = partition(train.map(lambda x: x[:1024]), M)
+            z = torch.randint(0, t, tuple(sh.tokens.shape), **int32)
+            _, ntw, _ = counts_from_assignments(sh.tokens, sh.mask, z, t, W)
+            tok, msk = sh.tokens, sh.mask
+            table = ntw.transpose(1, 2).contiguous()
+            index = index_of(table, cap)
+        chain = torch.arange(M, device=dev)[:, None, None].expand_as(tok)
+        real_at = msk > 0
+        rows_w = (chain * W + tok.long())[real_at]      # [R] stacked rows
+        R = rows_w.numel()
+        pw = (table.reshape(M * W, t)[rows_w] + cfg.beta) * (
+            torch.rand((R, t), device=dev, generator=gen) + 0.1)
+        pw = pw.contiguous()
+        uw = torch.rand((R,), device=dev, generator=gen)
+        iw = tuple(x.reshape(M * W, -1)[rows_w].contiguous() for x in index)
+        z_k = sparse.sparse_two_stage_draw_cuda(pw, uw, *iw)
+        z_p, stage2 = sparse.two_stage_draw(pw, uw, *iw)
+        mis = float((z_k != z_p).sum()) / R
+        err = float((z_k - z_p).abs().max())
+        ms = event_ms(lambda: sparse.sparse_two_stage_draw_cuda(pw, uw, *iw),
+                      20)
+        plain = event_ms(lambda: sparse.sparse_two_stage_draw(pw, uw, *iw),
+                         5)
+        share = float(stage2.float().mean())
+        b_ms, b_by = bound_ms([pw, uw, *iw, z_k],
+                              sparse_draw_ops(t, cap, share) * R)
+        row = {"phase": "B4", "shape": label, "rows": R, "T": t, "cap": cap,
+               "draw_mismatch": mis, "max_abs_err": err,
+               "stage2_share": share, "ms": ms, "plain_ms": plain,
+               "bound_ms": b_ms, "bound_by": b_by}
+        emit(row)
+        rows.setdefault("B4", row)
+        check(mis <= MISMATCH_MAX, f"B4 {label}: draw mismatch {mis}")
+
+    # ---- small shapes, every kernel dense and sparse, on inputs drawn from
+    # a generator of their own: z mostly a function of the word (so a
+    # word's occupancy stays below T), φ̂ with exact zeros
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    for t, cap, d, w_dim, n in ((16, 16, 512, 500, 60), (16, 4, 512, 500, 60),
+                                (40, 8, 256, 300, 40), (3, 2, 128, 50, 20),
+                                (128, 32, 128, 400, 40),
+                                (256, 32, 64, 300, 30)):
+        tok = torch.randint(0, w_dim, (M, d, n), device=dev, generator=g,
+                            dtype=torch.int32)
+        lens = torch.randint(n // 3, n + 1, (M, d), device=dev, generator=g)
+        msk = (torch.arange(n, device=dev) < lens[..., None]).float()
+        z = torch.randint(0, t, (M, d, n), device=dev, generator=g,
+                          dtype=torch.int32)
+        zw = torch.remainder(tok * 7 + torch.randint(
+            0, 3, (M, d, n), device=dev, generator=g, dtype=torch.int32),
+            t).int()
+        z = torch.where(torch.rand((M, d, n), device=dev, generator=g) < 0.8,
+                        zw, z).int()
+        ndt, ntw, nt = counts_from_assignments(tok, msk, z, t, w_dim)
+        ntw_t = ntw.transpose(1, 2).contiguous()
+        eta = torch.randn((M, t), device=dev, generator=g)
+        y = torch.randn((M, d), device=dev, generator=g)
+        il = 1.0 / msk.sum(-1).clamp(min=1.0)
+        u = torch.rand((M, d, n), device=dev, generator=g)
+        real = float(msk.sum())
+        for mode in ("dense", "sparse"):
+            ti = index_of(ntw_t, cap) if mode == "sparse" else None
+            kw = dict(alpha=0.1, beta=0.01, rho=0.25, supervised=True,
+                      topic_index=ti)
+            a = (tok, msk, u, z, ndt, y, il, ntw_t, nt, eta)
+            z_k, ndt_k = slda_gibbs.slda_gibbs_sweep_cuda(*a, **kw)
+            z_p, _ = ref.ref_slda_gibbs_sweep_chains(*a, **kw)
+            mis2 = float(((z_k != z_p) & (msk > 0)).sum()) / real
+            rc = counts_from_assignments(tok, msk, z_k, t, w_dim)[0]
+            ex2 = bool(torch.equal(rc, ndt_k))
+            sd = torch.randint(0, 2 ** 31 - 1, (M, d), device=dev,
+                               generator=g, dtype=torch.int32)
+            kw3 = dict(alpha=0.1, beta=0.01, rho=0.25, n_sweeps=4,
+                       doc_block=64, supervised=True, product_form=True,
+                       topic_index=ti)
+            a3 = (tok, msk, sd, z, ndt, y, il, ntw_t, nt, eta)
+            z_k, ndt_k = slda_train.slda_train_sweeps_cuda(*a3, **kw3)
+            z_p, _ = ref.slda_train_sweeps_chains(*a3, **kw3)
+            mis3 = float(((z_k != z_p) & (msk > 0)).sum()) / real
+            rc = counts_from_assignments(tok, msk, z_k, t, w_dim)[0]
+            ex3 = bool(torch.equal(rc, ndt_k))
+            phi = torch.rand((M, w_dim, t), device=dev, generator=g) ** 8
+            phi = phi / phi.sum(1, keepdim=True)
+            phi = torch.where(phi < 1e-4, torch.zeros_like(phi),
+                              phi).contiguous()
+            tp = index_of(phi, cap) if mode == "sparse" else None
+            kw1 = dict(alpha=0.1, n_burnin=0, n_samples=1, topic_index=tp)
+            m0 = msk[0][None].expand(M, -1, -1)
+            n0 = counts_from_assignments(tok[0][None].expand(M, -1, -1), m0,
+                                         z, t, w_dim)[0]
+            a1 = (tok[0].contiguous(), msk[0].contiguous(), sd, z, n0, phi)
+            _, z_k = slda_predict.slda_predict_sweeps_cuda(*a1, **kw1)
+            _, z_p = ref.slda_predict_sweeps_chains(*a1, **kw1)
+            mis1 = float(((z_k != z_p) & (m0 > 0)).sum()) / float(m0.sum())
+            emit({"phase": "small_shapes", "T": t, "cap": cap, "D": d,
+                  "W": w_dim, "N": n, "mode": mode, "B1_mismatch": mis1,
+                  "B2_mismatch": mis2, "B2_counts_exact": ex2,
+                  "B3_mismatch": mis3, "B3_counts_exact": ex3})
+            check(max(mis1, mis2, mis3) <= MISMATCH_MAX,
+                  f"small_shapes T={t} {mode}: draw mismatch")
+            check(ex2 and ex3, f"small_shapes T={t} {mode}: counts differ")
+
     # ---- end to end: the four algorithms through their entry points, at
-    # one sweep per launch (B2) and at eight (B3); each run's launch
-    # counts are zeroed just before it and read just after
+    # one sweep per launch (B2) and at eight (B3), dense and sparse; each
+    # run's launch counts are zeroed just before it and read just after
     fused = dataclasses.replace(cfg, sweeps_per_launch=8)
+    sparse_one = dataclasses.replace(cfg, sampler_mode="sparse")
+    sparse_fused = dataclasses.replace(fused, sampler_mode="sparse")
+    modules = {"B1": slda_predict, "B2": slda_gibbs, "B3": slda_train}
     counted = {}
     for phase, run_cfg, want in (
             ("end_to_end", cfg, {"B1": 4, "B2": 4 * cfg.n_iters, "B3": 0}),
-            ("end_to_end_fused", fused, {"B1": 4, "B2": 0, "B3": 16})):
+            ("end_to_end_fused", fused, {"B1": 4, "B2": 0, "B3": 16}),
+            ("end_to_end_sparse", sparse_one,
+             {"B1": 4, "B2": 4 * cfg.n_iters, "B3": 0}),
+            ("end_to_end_sparse", sparse_fused,
+             {"B1": 4, "B2": 0, "B3": 16})):
         fig6_mdna.run(args.seed, dev, data=(train, test),
                       cfg=run_cfg)                           # warm-up
-        slda_gibbs.launches = slda_predict.launches = 0
-        slda_train.launches = 0
+        for mod in modules.values():
+            mod.launches = mod.sparse_launches = 0
         res = fig6_mdna.run(args.seed, dev, data=(train, test), cfg=run_cfg)
         torch.cuda.synchronize()
-        launches = {"B1": slda_predict.launches, "B2": slda_gibbs.launches,
-                    "B3": slda_train.launches}
-        counted[phase] = launches
+        launches = {k: mod.launches for k, mod in modules.items()}
+        sparse_launches = {k: mod.sparse_launches
+                           for k, mod in modules.items()}
+        counted[phase, run_cfg.sweeps_per_launch] = (launches,
+                                                     sparse_launches)
         emit({"phase": phase, "card": smi,
               "sweeps_per_launch": run_cfg.sweeps_per_launch,
-              "launches": launches, **res})
+              "sampler_mode": run_cfg.sampler_mode,
+              "sparse_topic_cap": min(run_cfg.sparse_topic_cap, T0),
+              "launches": launches, "sparse_launches": sparse_launches,
+              **res})
         mse = {k: v["test_mse"] for k, v in res["algorithms"].items()}
         var_y = res["var_y_test"]
         check(launches == want, f"{phase}: launch counts {launches}")
+        want_sparse = launches if run_cfg.sampler_mode == "sparse" else \
+            {k: 0 for k in launches}
+        check(sparse_launches == want_sparse,
+              f"{phase}: sparse launch counts {sparse_launches}")
         check(all(v == v and abs(v) != float("inf") for v in mse.values()),
               f"{phase}: non-finite test MSE {mse}")
         for name in ("nonparallel", "simple", "weighted"):
@@ -314,7 +632,19 @@ def main() -> int:
     # device kernels only: an operator's row repeats its kernels' time
     dev_us = lambda e: getattr(e, "self_device_time_total",
                                getattr(e, "self_cuda_time_total", 0.0))
-    for run_cfg in (cfg, fused):
+    # the kernels one topic-index build launches (argsort, gather, the occm
+    # scatter), and its time at the slice's training table
+    # (from ntw [M, T, W] seen as [M, W, T], as the ops see it)
+    ntw_view = b4_in[2].transpose(1, 2).contiguous().transpose(1, 2)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sparse.build_topic_index(ntw_view, cfg.sparse_topic_cap)
+        torch.cuda.synchronize()
+    index_kernels = {e.key for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and dev_us(e) > 0}
+    index_ms = event_ms(lambda: sparse.build_topic_index(
+        ntw_view, cfg.sparse_topic_cap), 20)
+    for run_cfg in (cfg, fused, sparse_fused):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -326,31 +656,53 @@ def main() -> int:
                       if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                      key=dev_us, reverse=True)
         busy_ms = sum(dev_us(e) for e in ops) / 1e3
-        emit({"phase": "profile", "algorithm": "simple",
-              "sweeps_per_launch": run_cfg.sweeps_per_launch,
-              "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-              "device_idle_share": 1.0 - busy_ms / wall_ms if ops else None,
-              "top_kernels": [{"name": e.key[:70], "calls": e.count,
-                               "ms": dev_us(e) / 1e3} for e in ops[:8]]})
+        line = {"phase": "profile", "algorithm": "simple",
+                "sweeps_per_launch": run_cfg.sweeps_per_launch,
+                "sampler_mode": run_cfg.sampler_mode,
+                "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_idle_share": 1.0 - busy_ms / wall_ms if ops else None,
+                "top_kernels": [{"name": e.key[:70], "calls": e.count,
+                                 "ms": dev_us(e) / 1e3} for e in ops[:8]]}
+        if run_cfg.sampler_mode == "sparse":
+            # one build per launch and one for prediction; the build's
+            # kernels where they rank (names shared with other operations
+            # count those too)
+            line["index_build"] = {
+                "ms_per_build": index_ms,
+                "builds": -(-run_cfg.n_iters // run_cfg.sweeps_per_launch)
+                + 1,
+                "kernels": [{"rank": i + 1, "name": e.key[:70],
+                             "calls": e.count, "ms": dev_us(e) / 1e3}
+                            for i, e in enumerate(ops)
+                            if e.key in index_kernels]}
+        emit(line)
 
-    # each kernel's launches in the run of the path it carries
+    # each kernel's launches in the run of the path it carries; B4 runs
+    # inside every sparse launch of B1–B3, at both settings
+    sparse_runs = [counted["end_to_end_sparse", s][1] for s in (1, 8)]
+    launches_of = {
+        "B1": counted["end_to_end", 1][0]["B1"],
+        "B2": counted["end_to_end", 1][0]["B2"],
+        "B3": counted["end_to_end_fused", 8][0]["B3"],
+        "B4": sum(sum(run.values()) for run in sparse_runs)}
     sources = {"B1": ("slda_predict_sweeps", "slda_predict.cu",
-                      "src/repro/kernels/slda_predict.py:119", "end_to_end"),
+                      "src/repro/kernels/slda_predict.py:119"),
                "B2": ("slda_gibbs_sweep", "slda_gibbs.cu",
-                      "src/repro/kernels/slda_gibbs.py:31", "end_to_end"),
+                      "src/repro/kernels/slda_gibbs.py:31"),
                "B3": ("slda_train_sweeps", "slda_train.cu",
-                      "src/repro/kernels/slda_train.py:99",
-                      "end_to_end_fused")}
+                      "src/repro/kernels/slda_train.py:99"),
+               "B4": ("sparse_two_stage_draw", "slda_common.cuh",
+                      "src/repro/kernels/sparse.py:53")}
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": rep,
-        "launches": counted[path][k],
+        "launches": launches_of[k],
         "max_abs_err": rows[k].get("max_abs_err",
                                    rows[k].get("one_sweep_max_abs_err")),
         "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
         "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k]["bound_by"],
         "library_ms": None}
-        for k, (name, src, rep, path) in sources.items()]})
+        for k, (name, src, rep) in sources.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

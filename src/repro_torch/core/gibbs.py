@@ -47,7 +47,8 @@ def sweep(uniforms: torch.Tensor, corpus: Corpus, state: GibbsState,
         corpus.tokens[None], corpus.mask[None], uniforms[None],
         state.z[None], state.ndt[None], corpus.y[None], inv_len[None],
         state.ntw[None], state.nt[None], state.eta[None], alpha=cfg.alpha,
-        beta=cfg.beta, rho=cfg.rho, supervised=supervised)
+        beta=cfg.beta, rho=cfg.rho, supervised=supervised,
+        sampler_mode=cfg.sampler_mode, sparse_topic_cap=cfg.sparse_topic_cap)
     z, ndt = z[0], ndt[0]
     if exact_rebuild:
         ndt, ntw, nt = counts_from_assignments(

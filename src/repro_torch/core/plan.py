@@ -9,7 +9,8 @@ over all chains followed by the exact count refresh and the η solve; at
 `ops.slda_train_sweeps` launch of that many sweeps (a shorter remainder
 launch keeps the total at `n_iters`).  Prediction is one
 `ops.slda_predict_sweeps` over a corpus shared by all chains.  The
-random numbers come in as arguments (`core.rng`).  The reference's
+random numbers come in as arguments (`core.rng`).  `cfg.sampler_mode`
+picks the dense or the sparse two-stage draw in all three ops.  The reference's
 `jax.lax.scan` over EM boundaries is a Python loop here.
 """
 from __future__ import annotations
@@ -102,7 +103,8 @@ class ExecutionPlan:
         return ops.slda_gibbs_sweep(
             c.tokens, c.mask, uniforms, state.z, state.ndt, c.y, inv_len,
             state.ntw, state.nt, state.eta, alpha=cfg.alpha, beta=cfg.beta,
-            rho=cfg.rho, supervised=True)
+            rho=cfg.rho, supervised=True, sampler_mode=cfg.sampler_mode,
+            sparse_topic_cap=cfg.sparse_topic_cap)
 
     def _blocks_launch(self, state, seeds, inv_len, n_sweeps: int):
         """One fused launch of `n_sweeps` sweeps over every chain, from
@@ -113,7 +115,9 @@ class ExecutionPlan:
             state.nt, state.eta, seeds, alpha=cfg.alpha, beta=cfg.beta,
             rho=cfg.rho, n_sweeps=n_sweeps,
             doc_block=self.train_doc_block(c.n_docs), supervised=True,
-            product_form=cfg.product_form_sweeps, ctr_stride=c.max_len)
+            product_form=cfg.product_form_sweeps, ctr_stride=c.max_len,
+            sampler_mode=cfg.sampler_mode,
+            sparse_topic_cap=cfg.sparse_topic_cap)
 
     def _rebuild_now(self, it: int) -> bool:
         every = self.cfg.count_rebuild_every
@@ -191,7 +195,8 @@ class ExecutionPlan:
         ndt_avg, _ = ops.slda_predict_sweeps(
             c.tokens, c.mask, z0, ndt0, models.phi, seeds, alpha=cfg.alpha,
             n_burnin=cfg.n_pred_burnin, n_samples=cfg.n_pred_samples,
-            ctr_stride=c.max_len)
+            ctr_stride=c.max_len, sampler_mode=cfg.sampler_mode,
+            sparse_topic_cap=cfg.sparse_topic_cap)
         return ndt_avg / c.lengths().clamp(min=1.0)[:, None]
 
     def predict(self, z0, seeds, models: SLDAModel):

@@ -19,11 +19,13 @@ class SLDAConfig:
     """Hyperparameters of supervised LDA (McAuliffe & Blei 2008 notation).
 
     Same fields and defaults as the reference's `SLDAConfig`.  This port
-    runs the padded, dense-sampler path, one sweep per launch
-    (`sweeps_per_launch=1`, kernel B2) or several (kernel B3); the other
-    settings raise until the ROADMAP item that brings them lands.
-    `use_pallas` is accepted and ignored: the tensors' device decides
-    between the CUDA kernels and their plain versions.
+    runs the padded path, one sweep per launch (`sweeps_per_launch=1`,
+    kernel B2) or several (kernel B3), with the dense draw or the sparse
+    two-stage draw (`sampler_mode="sparse"`, over each word's top
+    `sparse_topic_cap` topics, clamped to T); ragged buckets raise until
+    the ROADMAP item that brings them lands.  `use_pallas` is accepted
+    and ignored: the tensors' device decides between the CUDA kernels and
+    their plain versions.
     """
 
     n_topics: int = 32
@@ -58,10 +60,9 @@ class SLDAConfig:
             raise NotImplementedError(
                 "length_buckets > 0 (ragged execution) comes with ROADMAP "
                 "queue A item 8")
-        if self.sampler_mode != "dense":
-            raise NotImplementedError(
-                f"sampler_mode={self.sampler_mode!r} comes with ROADMAP "
-                "queue A item 9 / kernel B4")
+        if self.sampler_mode not in ("dense", "sparse"):
+            raise ValueError(f"sampler_mode={self.sampler_mode!r}: expected "
+                             "'dense' or 'sparse'")
 
 
 class _Tensors:
@@ -216,3 +217,36 @@ def apply_count_deltas(ntw: Tensor, nt: Tensor, tokens: Tensor,
     nt2.index_add_(0, b * T + zn, wt)
     nt2.index_add_(0, b * T + zo, -wt)
     return ntw2.reshape(ntw.shape), nt2.reshape(nt.shape)
+
+
+def topic_occupancy_index(table_t: Tensor, cap: int):
+    """Per-word top-`cap` occupied-topic index for the sparse sampler.
+
+    `table_t` is any `[..., W, T]` word-major table (`ntw` transposed for
+    training, `phi_t` for prediction).  Returns `(idx, vmask, occm)`:
+
+      * ``idx``   int32 `[..., W, cap]`: the word's top-`cap` topics by
+        mass, distinct entries;
+      * ``vmask`` f32 `[..., W, cap]`: 1 where the indexed entry carries
+        positive mass, 0 for slots past the word's true occupancy;
+      * ``occm``  f32 `[..., W, T]`: the 0/1 membership mask of the valid
+        indexed topics.
+
+    `cap` is clamped to T.  The sort is stable, as `jnp.argsort` is:
+    count tables are full of ties (zeros above all), and an unstable
+    sort orders them differently from the reference."""
+    *lead, w_dim, t_dim = table_t.shape
+    cap = int(min(cap, t_dim))
+    idx = torch.argsort(-table_t, dim=-1, stable=True)[..., :cap] \
+        .to(torch.int32)
+    vals = table_t.gather(-1, idx.long())
+    vmask = (vals > 0).to(torch.float32)
+    # idx entries are distinct per word, so a scatter equals an add
+    occm = torch.zeros(table_t.shape, dtype=torch.float32,
+                       device=table_t.device).scatter_(-1, idx.long(), vmask)
+    return idx, vmask, occm
+
+
+def topic_occupancy(table_t: Tensor) -> Tensor:
+    """Number of positive-mass topics per word (`[..., W]`)."""
+    return (table_t > 0).to(torch.int32).sum(-1, dtype=torch.int32)

@@ -8,12 +8,15 @@ otherwise.  The corpus is drawn by the port's `make_slda_corpus` from
 `seed`; the algorithms run from `seed + 1`.
 
     PYTHONPATH=src python -m repro_torch.fig6_mdna --device cpu \
-        [--sweeps-per-launch 8]
+        [--sweeps-per-launch 8] [--sampler-mode sparse] \
+        [--sparse-topic-cap 32]
 
 prints each algorithm's test MSE beside var(y_test) and the ratios the
 paper's claims rest on.  `--sweeps-per-launch 8` trains with fused
 launches of 8 sweeps (kernel B3 on the card), as the reference's own
 training benchmarks do; the default 1 trains one sweep per launch.
+`--sampler-mode sparse` draws every topic through the sparse two-stage
+draw over each word's top `--sparse-topic-cap` topics (clamped to T).
 """
 from __future__ import annotations
 
@@ -72,8 +75,16 @@ if __name__ == "__main__":
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sweeps-per-launch", type=int, default=1)
+    ap.add_argument("--sampler-mode", choices=("dense", "sparse"),
+                    default="dense")
+    ap.add_argument("--sparse-topic-cap", type=int,
+                    default=CFG.sparse_topic_cap)
     a = ap.parse_args()
-    cfg = dataclasses.replace(CFG, sweeps_per_launch=a.sweeps_per_launch)
+    cfg = dataclasses.replace(CFG, sweeps_per_launch=a.sweeps_per_launch,
+                              sampler_mode=a.sampler_mode,
+                              sparse_topic_cap=a.sparse_topic_cap)
     print(json.dumps({"device": a.device, "seed": a.seed,
                       "sweeps_per_launch": a.sweeps_per_launch,
+                      "sampler_mode": a.sampler_mode,
+                      "sparse_topic_cap": a.sparse_topic_cap,
                       **run(a.seed, a.device, cfg=cfg)}))

@@ -127,6 +127,26 @@ def check_operand(name: str, t: torch.Tensor, dtype, shape, device) -> None:
         raise ValueError(f"{name}: not contiguous")
 
 
+def topic_index_operands(topic_index, M: int, W: int, T: int,
+                         device) -> tuple:
+    """The sparse draw's operands `(idx, vmask, occm, cap)` as a launcher
+    takes them: null pointers and cap 0 for the dense draw (None), else
+    the checked pointers of idx int32 / vmask f32 [M, W, cap] and occm f32
+    [M, W, T] with 1 <= cap <= T."""
+    if topic_index is None:
+        return 0, 0, 0, 0
+    idx, vmask, occm = topic_index
+    cap = idx.shape[-1]
+    if not 1 <= cap <= T:
+        raise ValueError(f"topic index: cap {cap} outside 1..T={T}")
+    for name, t, dtype, shape in (
+            ("idx", idx, torch.int32, (M, W, cap)),
+            ("vmask", vmask, torch.float32, (M, W, cap)),
+            ("occm", occm, torch.float32, (M, W, T))):
+        check_operand(name, t, dtype, shape, device)
+    return idx.data_ptr(), vmask.data_ptr(), occm.data_ptr(), cap
+
+
 def stream_of(device) -> int:
     """The current PyTorch stream of `device`, as the launchers take it."""
     return torch.cuda.current_stream(device).cuda_stream

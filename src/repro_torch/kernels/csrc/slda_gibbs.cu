@@ -24,11 +24,16 @@
 // padding tokens skipped by a warp-uniform branch.  It is built without
 // fused multiply-add contraction so that each expression rounds as the
 // plain version's separate tensor operations do.
+//
+// SPARSE instantiations (`sampler_mode="sparse"`, the TPU kernel's branch
+// at slda_gibbs.py:74-79) draw through `draw_topic_sparse` against the
+// topic index of the sweep-frozen table (idx, vmask [M, W, cap], occm
+// [M, W, T]); everything else is the dense kernel.
 #include "slda_common.cuh"
 
 namespace slda {
 
-template <int K>
+template <int K, bool SPARSE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
                    const float* __restrict__ mask,     // [M, D, N]
@@ -43,12 +48,17 @@ gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
                    int* __restrict__ z_out,            // [M, D, N]
                    float* __restrict__ ndt_out,        // [M, D, T]
                    int D, int N, int T, int W, float alpha, float beta,
-                   float w_beta, float rho, int supervised) {
+                   float w_beta, float rho, int supervised,
+                   const int* __restrict__ idx,        // [M, W, cap]
+                   const float* __restrict__ vmask,    // [M, W, cap]
+                   const float* __restrict__ occm,     // [M, W, T]
+                   int cap) {
   const int lane = threadIdx.x & 31;
   const int d = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (d >= D) return;  // warp-uniform
   const int c = blockIdx.y;
-  __shared__ float stage[kWarpsPerBlock][kMaxTopics];
+  __shared__ float stage[kWarpsPerBlock]
+                        [SPARSE ? 2 * kMaxTopics + 16 : kMaxTopics];
   float* sp = stage[threadIdx.x >> 5];
   const size_t row = static_cast<size_t>(c) * D + d;
   const float* table = ntw_t + static_cast<size_t>(c) * W * T;
@@ -111,7 +121,14 @@ gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
 #pragma unroll
       for (int k = 0; k < K; ++k)
         p[k] = lane + 32 * k < T ? expf(lp[k] - mx) : 0.f;
-      const int z_new = draw_topic<K>(p, u, lane, T, sp);
+      int z_new;
+      if constexpr (SPARSE) {
+        const size_t r = static_cast<size_t>(c) * W + w;
+        z_new = draw_topic_sparse<K>(p, u, lane, T, sp, idx + r * cap,
+                                     vmask + r * cap, occm + r * T, cap);
+      } else {
+        z_new = draw_topic<K>(p, u, lane, T, sp);
+      }
 #pragma unroll
       for (int k = 0; k < K; ++k)
         nd[k] = nd[k] + (lane + 32 * k == z_new ? m : 0.f);
@@ -134,14 +151,19 @@ extern "C" int slda_gibbs_sweep_launch(
     const float* ndt, const float* y, const float* inv_len,
     const float* ntw_t, const float* nt, const float* eta, int* z_out,
     float* ndt_out, int M, int D, int N, int T, int W, float alpha,
-    float beta, float w_beta, float rho, int supervised, void* stream) {
+    float beta, float w_beta, float rho, int supervised, const int* idx,
+    const float* vmask, const float* occm, int cap, void* stream) {
   const dim3 grid((D + slda::kWarpsPerBlock - 1) / slda::kWarpsPerBlock, M);
   const dim3 block(slda::kWarpsPerBlock * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SLDA_GIBBS(K)                                                       \
-  slda::gibbs_sweep_kernel<K><<<grid, block, 0, st>>>(                      \
+  // a null idx is the dense draw; else the sparse one over cap <= T slots
+#define SLDA_GIBBS_AS(K, SPARSE)                                            \
+  slda::gibbs_sweep_kernel<K, SPARSE><<<grid, block, 0, st>>>(              \
       tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, nt, eta, z_out,    \
-      ndt_out, D, N, T, W, alpha, beta, w_beta, rho, supervised)
+      ndt_out, D, N, T, W, alpha, beta, w_beta, rho, supervised, idx,       \
+      vmask, occm, cap)
+#define SLDA_GIBBS(K)                                                       \
+  if (idx) SLDA_GIBBS_AS(K, true); else SLDA_GIBBS_AS(K, false)
   switch ((T + 31) / 32) {
     case 1: SLDA_GIBBS(1); break;
     case 2: SLDA_GIBBS(2); break;
@@ -154,5 +176,6 @@ extern "C" int slda_gibbs_sweep_launch(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SLDA_GIBBS
+#undef SLDA_GIBBS_AS
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,11 +27,16 @@
 // (their z and ndt are left as they are, which is what the reference's
 // masked update computes).  The token and mask tiles [D, N] are shared by
 // all chains.
+//
+// SPARSE instantiations (`sampler_mode="sparse"`, the TPU kernel's branch
+// at slda_predict.py:172-178) draw through `draw_topic_sparse` against
+// each chain's topic index of φ̂ (idx, vmask [M, W, cap], occm [M, W, T]),
+// read per token beside the φ̂ row; everything else is the dense kernel.
 #include "slda_common.cuh"
 
 namespace slda {
 
-template <int K>
+template <int K, bool SPARSE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 predict_sweeps_kernel(const int* __restrict__ tokens,   // [D, N] shared
                       const float* __restrict__ mask,   // [D, N] shared
@@ -42,12 +47,17 @@ predict_sweeps_kernel(const int* __restrict__ tokens,   // [D, N] shared
                       float* __restrict__ ndt_avg,      // [M, D, T]
                       int* __restrict__ z_out,          // [M, D, N]
                       int D, int N, int T, int W, float alpha, int n_burnin,
-                      int n_samples, int ctr_stride, float inv_samples) {
+                      int n_samples, int ctr_stride, float inv_samples,
+                      const int* __restrict__ idx,      // [M, W, cap]
+                      const float* __restrict__ vmask,  // [M, W, cap]
+                      const float* __restrict__ occm,   // [M, W, T]
+                      int cap) {
   const int lane = threadIdx.x & 31;
   const int d = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (d >= D) return;  // warp-uniform
   const int c = blockIdx.y;
-  __shared__ float stage[kWarpsPerBlock][kMaxTopics];
+  __shared__ float stage[kWarpsPerBlock]
+                        [SPARSE ? 2 * kMaxTopics + 16 : kMaxTopics];
   float* sp = stage[threadIdx.x >> 5];
   const size_t row = static_cast<size_t>(c) * D + d;
   const int* tok = tokens + static_cast<size_t>(d) * N;
@@ -91,7 +101,14 @@ predict_sweeps_kernel(const int* __restrict__ tokens,   // [D, N] shared
           nd[k] = nd[k] - (t == z_old ? m : 0.f);
           p[k] = t < T ? (nd[k] + alpha) * prow[t] : 0.f;
         }
-        const int z_new = draw_topic<K>(p, u, lane, T, sp);
+        int z_new;
+        if constexpr (SPARSE) {
+          const size_t r = static_cast<size_t>(c) * W + w;
+          z_new = draw_topic_sparse<K>(p, u, lane, T, sp, idx + r * cap,
+                                       vmask + r * cap, occm + r * T, cap);
+        } else {
+          z_new = draw_topic<K>(p, u, lane, T, sp);
+        }
 #pragma unroll
         for (int k = 0; k < K; ++k)
           nd[k] = nd[k] + (lane + 32 * k == z_new ? m : 0.f);
@@ -111,6 +128,35 @@ predict_sweeps_kernel(const int* __restrict__ tokens,   // [D, N] shared
   }
 }
 
+// The sparse two-stage draw alone, one warp per row of p [R, T] with its
+// uniform and index rows (idx, vmask [R, cap], occm [R, T]): the device
+// function the three sampler kernels draw with, exposed so that it can be
+// held against its plain version and timed by itself.
+template <int K>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sparse_draw_kernel(const float* __restrict__ p, const float* __restrict__ u,
+                   const int* __restrict__ idx,
+                   const float* __restrict__ vmask,
+                   const float* __restrict__ occm, int* __restrict__ z,
+                   int R, int T, int cap) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (r >= R) return;  // warp-uniform
+  __shared__ float stage[kWarpsPerBlock][2 * kMaxTopics + 16];
+  const size_t row = static_cast<size_t>(r);
+  float pr[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int t = lane + 32 * k;
+    pr[k] = t < T ? p[row * T + t] : 0.f;
+  }
+  const int zr = draw_topic_sparse<K>(pr, u[r], lane, T,
+                                      stage[threadIdx.x >> 5],
+                                      idx + row * cap, vmask + row * cap,
+                                      occm + row * T, cap);
+  if (lane == 0) z[r] = zr;
+}
+
 __global__ void counter_uniform_kernel(const int* __restrict__ seeds,
                                        const int* __restrict__ ctrs,
                                        float* __restrict__ out, int n) {
@@ -126,14 +172,19 @@ extern "C" int slda_predict_sweeps_launch(
     const int* tokens, const float* mask, const int* seeds, const int* z0,
     const float* ndt0, const float* phi_t, float* ndt_avg, int* z_out, int M,
     int D, int N, int T, int W, float alpha, int n_burnin, int n_samples,
-    int ctr_stride, float inv_samples, void* stream) {
+    int ctr_stride, float inv_samples, const int* idx, const float* vmask,
+    const float* occm, int cap, void* stream) {
   const dim3 grid((D + slda::kWarpsPerBlock - 1) / slda::kWarpsPerBlock, M);
   const dim3 block(slda::kWarpsPerBlock * 32);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define SLDA_PREDICT(K)                                                     \
-  slda::predict_sweeps_kernel<K><<<grid, block, 0, st>>>(                   \
+  // a null idx is the dense draw; else the sparse one over cap <= T slots
+#define SLDA_PREDICT_AS(K, SPARSE)                                          \
+  slda::predict_sweeps_kernel<K, SPARSE><<<grid, block, 0, st>>>(           \
       tokens, mask, seeds, z0, ndt0, phi_t, ndt_avg, z_out, D, N, T, W,     \
-      alpha, n_burnin, n_samples, ctr_stride, inv_samples)
+      alpha, n_burnin, n_samples, ctr_stride, inv_samples, idx, vmask,      \
+      occm, cap)
+#define SLDA_PREDICT(K)                                                     \
+  if (idx) SLDA_PREDICT_AS(K, true); else SLDA_PREDICT_AS(K, false)
   switch ((T + 31) / 32) {
     case 1: SLDA_PREDICT(1); break;
     case 2: SLDA_PREDICT(2); break;
@@ -146,6 +197,32 @@ extern "C" int slda_predict_sweeps_launch(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SLDA_PREDICT
+#undef SLDA_PREDICT_AS
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int slda_sparse_draw_launch(const float* p, const float* u,
+                                       const int* idx, const float* vmask,
+                                       const float* occm, int* z, int R,
+                                       int T, int cap, void* stream) {
+  const dim3 grid((R + slda::kWarpsPerBlock - 1) / slda::kWarpsPerBlock);
+  const dim3 block(slda::kWarpsPerBlock * 32);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SLDA_SPARSE_DRAW(K)                                                 \
+  slda::sparse_draw_kernel<K><<<grid, block, 0, st>>>(p, u, idx, vmask,     \
+                                                      occm, z, R, T, cap)
+  switch ((T + 31) / 32) {
+    case 1: SLDA_SPARSE_DRAW(1); break;
+    case 2: SLDA_SPARSE_DRAW(2); break;
+    case 3: SLDA_SPARSE_DRAW(3); break;
+    case 4: SLDA_SPARSE_DRAW(4); break;
+    case 5: SLDA_SPARSE_DRAW(5); break;
+    case 6: SLDA_SPARSE_DRAW(6); break;
+    case 7: SLDA_SPARSE_DRAW(7); break;
+    case 8: SLDA_SPARSE_DRAW(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef SLDA_SPARSE_DRAW
   return static_cast<int>(cudaGetLastError());
 }
 

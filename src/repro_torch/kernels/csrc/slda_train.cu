@@ -40,11 +40,21 @@
 //    between sweeps.  Order: sweep, __syncthreads, deltas, __syncthreads.
 // It is built without fused multiply-add contraction so that each
 // expression rounds as the plain version's separate tensor operations do.
+//
+// SPARSE instantiations (`sampler_mode="sparse"`, the TPU kernel's branch
+// at slda_train.py:179-187) draw through `draw_topic_sparse` against the
+// chain's LAUNCH-frozen topic index (idx, vmask [M, W, cap], occm
+// [M, W, T], built by the caller from the entry ntw_t): every doc block of
+// the chain reads the same index, which the between-sweep deltas never
+// touch.  The warp's staging grows from K·32 to 2·K·32 + 16 floats, which
+// keeps the static shared memory under 48 KB (33.8 KB at K = 8 with 16
+// warps): the residual reuses p's stage, and the prefix sums stay in
+// registers.
 #include "slda_common.cuh"
 
 namespace slda {
 
-template <int K, int WARPS>
+template <int K, int WARPS, bool SPARSE>
 __global__ void __launch_bounds__(WARPS * 32)
 train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
                     const float* __restrict__ mask,     // [M, D, N]
@@ -62,11 +72,15 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
                     float* local,                       // [M, B, W, T]
                     int D, int N, int T, int W, int doc_block, int n_sweeps,
                     int ctr_stride, float alpha, float beta, float w_beta,
-                    float rho, int supervised, int product_form) {
+                    float rho, int supervised, int product_form,
+                    const int* __restrict__ idx,        // [M, W, cap]
+                    const float* __restrict__ vmask,    // [M, W, cap]
+                    const float* __restrict__ occm,     // [M, W, T]
+                    int cap) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x, c = blockIdx.y;
-  __shared__ float stage[WARPS][K * 32];
+  __shared__ float stage[WARPS][SPARSE ? 2 * K * 32 + 16 : K * 32];
   __shared__ float nt_s[K * 32];
   float* sp = stage[warp];
   const int d0 = b * doc_block;
@@ -192,7 +206,14 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
             for (int k = 0; k < K; ++k)
               p[k] = lane + 32 * k < T ? expf(lp[k] - mx) : 0.f;
           }
-          const int z_new = draw_topic<K>(p, u, lane, T, sp);
+          int z_new;
+          if constexpr (SPARSE) {
+            const size_t r = static_cast<size_t>(c) * W + w;
+            z_new = draw_topic_sparse<K>(p, u, lane, T, sp, idx + r * cap,
+                                         vmask + r * cap, occm + r * T, cap);
+          } else {
+            z_new = draw_topic<K>(p, u, lane, T, sp);
+          }
 #pragma unroll
           for (int k = 0; k < K; ++k)
             nd[k] = nd[k] + (lane + 32 * k == z_new ? m : 0.f);
@@ -241,14 +262,21 @@ extern "C" int slda_train_sweeps_launch(
     float* ndt_out, int* z_buf, float* local, int M, int D, int N, int T,
     int W, int doc_block, int n_sweeps, int ctr_stride, float alpha,
     float beta, float w_beta, float rho, int supervised, int product_form,
+    const int* idx, const float* vmask, const float* occm, int cap,
     void* stream) {
   const dim3 grid((D + doc_block - 1) / doc_block, M);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // a null idx is the dense draw; else the sparse one over cap <= T slots
+#define SLDA_TRAIN_AS(K, WARPS, SPARSE)                                     \
+  slda::train_sweeps_kernel<K, WARPS, SPARSE>                               \
+      <<<grid, (WARPS) * 32, 0, st>>>(                                      \
+          tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta, z_out, \
+          ndt_out, z_buf, local, D, N, T, W, doc_block, n_sweeps,           \
+          ctr_stride, alpha, beta, w_beta, rho, supervised, product_form,   \
+          idx, vmask, occm, cap)
 #define SLDA_TRAIN(K, WARPS)                                                \
-  slda::train_sweeps_kernel<K, WARPS><<<grid, (WARPS) * 32, 0, st>>>(       \
-      tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta, z_out,     \
-      ndt_out, z_buf, local, D, N, T, W, doc_block, n_sweeps, ctr_stride,   \
-      alpha, beta, w_beta, rho, supervised, product_form)
+  if (idx) SLDA_TRAIN_AS(K, WARPS, true);                                   \
+  else SLDA_TRAIN_AS(K, WARPS, false)
   switch ((T + 31) / 32) {
     case 1: SLDA_TRAIN(1, 32); break;
     case 2: SLDA_TRAIN(2, 32); break;
@@ -261,5 +289,6 @@ extern "C" int slda_train_sweeps_launch(
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef SLDA_TRAIN
+#undef SLDA_TRAIN_AS
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,6 +9,14 @@ per-chain token-id offsets `w + c·W` (the fused training sweeps fold
 chain × doc block around `[M·B·W, T]`, one private table per block).
 The operation order is the reference's (`repro.kernels.ref`), and the
 prefix sum is `p @ triu(T)`.
+
+Each takes `topic_index=(idx, vmask, occm)` (`[M, W, cap]`, `[M, W, cap]`,
+`[M, W, T]`, `core.types.topic_occupancy_index` of the chain's table) to
+draw with the sparse two-stage draw (`kernels.sparse`) in place of the
+dense one; the weights p are the same either way.  The index folds with
+its table: row w + c·W of the stacked `[M·W, ·]` index is chain c's row
+w (and the fused sweeps repeat a chain's launch-frozen index for each of
+its doc blocks).
 """
 from __future__ import annotations
 
@@ -17,12 +25,41 @@ import torch
 
 from repro_torch.mathutil import upper_tri_ones
 from .prng import counter_uniform, predict_uniforms
+from .sparse import gather_index_rows, two_stage_draw
+
+# Real tokens the plain sparse draw has drawn, and those of them that took
+# its stage 2 (the residual): the stage-2 share `chip_smoke.py` reports.
+# Tensors after the first sparse draw; the caller resets them to 0.
+sparse_tally = {"tokens": 0, "stage2": 0}
 
 
 def _draw(p, u, tri_u):
     """Inverse-CDF categorical draw: z = #{t : (p @ triu)_t < u·Σp}."""
     c = p @ tri_u
     return (c < (u * c[:, -1])[:, None]).sum(-1).to(torch.int32)
+
+
+def _draw_rows(p, u, tri_u, w, m, index):
+    """The dense draw, or with a folded index `(idx, vmask, occm)` rows
+    the sparse two-stage draw against the rows of the words w (tallying
+    the real tokens, mask m > 0, that took stage 2)."""
+    if index is None:
+        return _draw(p, u, tri_u)
+    z, stage2 = two_stage_draw(p, u, *gather_index_rows(w, *index))
+    real = m > 0
+    sparse_tally["tokens"] = sparse_tally["tokens"] + real.sum()
+    sparse_tally["stage2"] = sparse_tally["stage2"] + (real & stage2).sum()
+    return z
+
+
+def _fold_index(topic_index, copies: int = 1):
+    """A chain index `[M, W, ·]` folded to the stacked `[M·W, ·]` rows, or
+    to `[M·copies·W, ·]` with each chain's rows repeated for each of its
+    `copies` doc blocks; None stays None."""
+    if topic_index is None:
+        return None
+    return tuple(a[:, None].expand(a.shape[0], copies, *a.shape[1:])
+                 .reshape(-1, a.shape[-1]) for a in topic_index)
 
 
 def _fold_chains(tokens, table_t):
@@ -40,13 +77,14 @@ def _fold_chains(tokens, table_t):
 
 def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
                 nt_rows, eta_rows, alpha, beta, rho, vocab_size,
-                supervised, product_form=False):
+                supervised, product_form=False, index=None):
     """One supervised sweep over R document rows in lockstep against the
     sweep-frozen table (AD-LDA delayed counts); nt/eta are per row [R, T].
     The log form exponentiates the sum of three logs and the Gaussian
     term; the product form (fused multi-sweep launches) multiplies the
     three factors and one exp of the Gaussian term — the same
-    categorical distribution."""
+    categorical distribution.  `index` is the folded topic index of the
+    sparse draw, aligned with the table (None: the dense draw)."""
     R, N = tok_f.shape
     T = ndt_f.shape[-1]
     iota = torch.arange(T, device=tok_f.device)[None, :]
@@ -76,7 +114,8 @@ def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
                 mu_t = (s[:, None] + eta_rows) * il_f[:, None]
                 logp = logp - 0.5 * (y_f[:, None] - mu_t) ** 2 / rho
             p = torch.exp(logp - logp.max(-1, keepdim=True).values)
-        z_new = torch.where(m > 0, _draw(p, u, tri_u), z_old)
+        z_new = torch.where(m > 0, _draw_rows(p, u, tri_u, w, m, index),
+                            z_old)
         zn = z_new.long()[:, None]
         ndt = ndt + (iota == zn).to(torch.float32) * m[:, None]
         s = s + eta_rows.gather(1, zn)[:, 0] * m
@@ -86,11 +125,13 @@ def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
 
 def ref_slda_gibbs_sweep_chains(tokens, mask, uniforms, z, ndt, y, inv_len,
                                 ntw_t, nt, eta, alpha, beta, rho,
-                                supervised: bool = True):
+                                supervised: bool = True, *,
+                                topic_index=None):
     """Chain-batched document-parallel sLDA Gibbs sweep (plain B2).
 
     tokens/mask/uniforms/z [M, D, N]; ndt [M, D, T]; y/inv_len [M, D];
-    ntw_t [M, W, T] (transposed, row-gather layout); nt/eta [M, T].
+    ntw_t [M, W, T] (transposed, row-gather layout); nt/eta [M, T];
+    topic_index the sparse draw's index of ntw_t, or None.
     Returns (z_new [M, D, N] int32, ndt_new [M, D, T])."""
     M, D, N = tokens.shape
     W, T = ntw_t.shape[-2:]
@@ -100,7 +141,7 @@ def ref_slda_gibbs_sweep_chains(tokens, mask, uniforms, z, ndt, y, inv_len,
         tok_f, mask.reshape(M * D, N), uniforms.reshape(M * D, N),
         z.reshape(M * D, N), ndt.reshape(M * D, T), y.reshape(M * D),
         inv_len.reshape(M * D), table, rows(nt), rows(eta),
-        alpha, beta, rho, W, supervised)
+        alpha, beta, rho, W, supervised, index=_fold_index(topic_index))
     return z2.reshape(M, D, N), ndt2.reshape(M, D, T)
 
 
@@ -124,7 +165,8 @@ def _pad_docs(a, pad):
 def ref_slda_train_sweeps_chains(tokens, mask, uniforms, z0, ndt0, y,
                                  inv_len, ntw_t, nt, eta, alpha, beta, rho,
                                  supervised: bool, doc_block: int, *,
-                                 product_form: bool = False):
+                                 product_form: bool = False,
+                                 topic_index=None):
     """Chain-batched fused training with EXPLICIT uniforms (plain B3).
 
     tokens/mask/z0 [M, D, N]; uniforms [M, D, S, N] (S sweeps); ndt0
@@ -139,7 +181,9 @@ def ref_slda_train_sweeps_chains(tokens, mask, uniforms, z0, ndt0, y,
     table sits at rows k·W.  Every sweep reads the block's sweep-frozen
     copy and nt; between sweeps (not after the last) the block's own ±1
     reassignments land on its copy and nt grows by the column sum of its
-    ndt deltas."""
+    ndt deltas.  The sparse draw's `topic_index` is launch-frozen: built
+    from the entry ntw_t, shared by every block of the chain, never
+    rebuilt from the blocks' private copies."""
     M, D, S, N = uniforms.shape
     W, T = ntw_t.shape[-2:]
     pad = (-D) % doc_block
@@ -157,11 +201,12 @@ def ref_slda_train_sweeps_chains(tokens, mask, uniforms, z0, ndt0, y,
     eta_rows = eta[:, None].expand(M, D + pad, T).reshape(R, T)
     z, ndt = z0.reshape(R, N), ndt0.reshape(R, T)
     y_f, il_f = y.reshape(R), inv_len.reshape(R)
+    index = _fold_index(topic_index, copies // M)
     for s in range(S):
         z_new, ndt_new = _gibbs_rows(
             tok_f, mask_f, u_f[:, s], z, ndt, y_f, il_f, table,
             nt_loc[block], eta_rows, alpha, beta, rho, W, supervised,
-            product_form)
+            product_form, index)
         if s < S - 1:
             changed = mask_f * (z_new != z).to(mask_f.dtype)
             table.index_put_((tok_f, z.long()), -changed, accumulate=True)
@@ -176,7 +221,7 @@ def ref_slda_train_sweeps_chains(tokens, mask, uniforms, z0, ndt0, y,
 def slda_train_sweeps_chains(tokens, mask, seeds, z0, ndt0, y, inv_len,
                              ntw_t, nt, eta, *, alpha, beta, rho, n_sweeps,
                              doc_block, supervised=True, product_form=False,
-                             ctr_stride=None):
+                             ctr_stride=None, topic_index=None):
     """Plain B3: the fused training launch under the counter-hash
     uniforms u = counter_uniform(seeds[c, d], s·ctr_stride + n) that the
     kernel derives per token (`prng.predict_uniforms`), fed through
@@ -187,13 +232,14 @@ def slda_train_sweeps_chains(tokens, mask, seeds, z0, ndt0, y, inv_len,
     return ref_slda_train_sweeps_chains(
         tokens, mask, u.reshape(M, D, n_sweeps, N), z0, ndt0, y, inv_len,
         ntw_t, nt, eta, alpha, beta, rho, supervised, doc_block,
-        product_form=product_form)
+        product_form=product_form, topic_index=topic_index)
 
 
 def _predict_rows(tok_f, mask_f, z0_f, ndt0_f, table_t, alpha, n_burnin,
-                  n_samples, uniform):
+                  n_samples, uniform, index=None):
     """All prediction sweeps over R rows in lockstep under frozen φ̂;
-    `uniform(s, n)` gives the [R] uniforms of token n in sweep s."""
+    `uniform(s, n)` gives the [R] uniforms of token n in sweep s; `index`
+    as `_gibbs_rows`'."""
     R, N = tok_f.shape
     T = ndt0_f.shape[-1]
     iota = torch.arange(T, device=tok_f.device)[None, :]
@@ -208,7 +254,9 @@ def _predict_rows(tok_f, mask_f, z0_f, ndt0_f, table_t, alpha, n_burnin,
                 * m[:, None]
             ndt = ndt - old
             p = (ndt + alpha) * table_t[w]
-            z_new = torch.where(m > 0, _draw(p, uniform(s, n), tri_u), z_old)
+            z_new = torch.where(
+                m > 0, _draw_rows(p, uniform(s, n), tri_u, w, m, index),
+                z_old)
             ndt = ndt + (iota == z_new.long()[:, None]).to(torch.float32) \
                 * m[:, None]
             z[:, n] = z_new
@@ -225,11 +273,13 @@ def _fold_shared(mask, M):
 
 
 def ref_slda_predict_sweeps_chains(tokens, mask, uniforms, z0, ndt0, phi_t,
-                                   alpha, n_burnin: int):
+                                   alpha, n_burnin: int, *,
+                                   topic_index=None):
     """Chain-batched prediction with EXPLICIT uniforms.
 
     tokens/mask [D, N] shared by all chains; uniforms [M, D, S, N]
-    (S = burn-in + samples); z0 [M, D, N]; ndt0 [M, D, T]; phi_t [M, W, T].
+    (S = burn-in + samples); z0 [M, D, N]; ndt0 [M, D, T]; phi_t [M, W, T];
+    topic_index the sparse draw's index of phi_t, or None.
     Returns (ndt_avg [M, D, T], z_final [M, D, N])."""
     M, D, S, N = uniforms.shape
     T = ndt0.shape[-1]
@@ -238,7 +288,8 @@ def ref_slda_predict_sweeps_chains(tokens, mask, uniforms, z0, ndt0, phi_t,
     avg, z = _predict_rows(tok_f, _fold_shared(mask, M),
                            z0.reshape(M * D, N), ndt0.reshape(M * D, T),
                            table, alpha, n_burnin, S - n_burnin,
-                           lambda s, n: u_f[:, s, n])
+                           lambda s, n: u_f[:, s, n],
+                           _fold_index(topic_index))
     return avg.reshape(M, D, T), z.reshape(M, D, N)
 
 
@@ -253,13 +304,16 @@ def ref_slda_predict_sweeps(tokens, mask, uniforms, z0, ndt0, phi_t, alpha,
 
 
 def slda_predict_sweeps_chains(tokens, mask, seeds, z0, ndt0, phi_t, *,
-                               alpha, n_burnin, n_samples, ctr_stride=None):
+                               alpha, n_burnin, n_samples, ctr_stride=None,
+                               topic_index=None):
     """Plain B1: chain-batched prediction with the counter-hash uniforms
     u = counter_uniform(seeds[c, d], s·ctr_stride + n) derived per token,
     as the kernel derives them (no [D, S, N] tensor).
 
     tokens/mask [D, N] shared; seeds int32 [M, D]; z0 [M, D, N]; ndt0
-    [M, D, T]; phi_t [M, W, T].  Returns (ndt_avg [M, D, T], z_final)."""
+    [M, D, T]; phi_t [M, W, T]; topic_index as
+    `ref_slda_predict_sweeps_chains`'.  Returns (ndt_avg [M, D, T],
+    z_final)."""
     M = phi_t.shape[0]
     D, N = mask.shape
     T = ndt0.shape[-1]
@@ -269,5 +323,6 @@ def slda_predict_sweeps_chains(tokens, mask, seeds, z0, ndt0, phi_t, *,
     avg, z = _predict_rows(
         tok_f, _fold_shared(mask, M), z0.reshape(M * D, N),
         ndt0.reshape(M * D, T), table, alpha, n_burnin, n_samples,
-        lambda s, n: counter_uniform(seeds_f, s * stride + n))
+        lambda s, n: counter_uniform(seeds_f, s * stride + n),
+        _fold_index(topic_index))
     return avg.reshape(M, D, T), z.reshape(M, D, N)

@@ -5,7 +5,8 @@ TPU kernel `_gibbs_kernel` of the reference (`repro/kernels/slda_gibbs.py`);
 the note at the head of the source says what bounds it and what its
 design does about that.  The plain version is
 `ref.ref_slda_gibbs_sweep_chains`.  `launches` counts the kernel's
-launches and nothing else.
+launches and nothing else; `sparse_launches` counts those of them that
+drew with the sparse two-stage draw (kernel B4).
 """
 from __future__ import annotations
 
@@ -16,17 +17,20 @@ import torch
 from . import build
 
 launches = 0
+sparse_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P] * 12 + [_I] * 5 + [_F] * 4 + [_I, _P]
+_ARGS = [_P] * 12 + [_I] * 5 + [_F] * 4 + [_I] + [_P] * 3 + [_I, _P]
 
 
 def slda_gibbs_sweep_cuda(tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t,
-                          nt, eta, *, alpha, beta, rho, supervised=True):
+                          nt, eta, *, alpha, beta, rho, supervised=True,
+                          topic_index=None):
     """tokens int32 / mask, uniforms f32 / z int32 [M, D, N]; ndt f32
     [M, D, T]; y, inv_len f32 [M, D]; ntw_t f32 [M, W, T]; nt, eta f32
-    [M, T].  Returns (z_new [M, D, N], ndt_new [M, D, T]), on the current
-    stream."""
-    global launches
+    [M, T]; topic_index None (the dense draw) or the sparse draw's
+    (idx, vmask, occm) of ntw_t.  Returns (z_new [M, D, N], ndt_new
+    [M, D, T]), on the current stream."""
+    global launches, sparse_launches
     M, D, N = tokens.shape
     W, T = ntw_t.shape[-2:]
     dev = tokens.device
@@ -44,6 +48,7 @@ def slda_gibbs_sweep_cuda(tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t,
         build.check_operand(name, t, dtype, shape, dev)
     if not 1 <= T <= 256:
         raise ValueError(f"the training kernel takes 1 <= T <= 256, got {T}")
+    index = build.topic_index_operands(topic_index, M, W, T, dev)
     z_out = torch.empty_like(z)
     ndt_out = torch.empty_like(ndt)
     if M * D == 0:
@@ -53,8 +58,9 @@ def slda_gibbs_sweep_cuda(tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t,
         rc = launch(*(t.data_ptr() for t in (
             tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, nt, eta,
             z_out, ndt_out)), M, D, N, T, W, float(alpha), float(beta),
-            float(W * beta), float(rho), int(supervised),
+            float(W * beta), float(rho), int(supervised), *index,
             build.stream_of(dev))
     build.check_launch("slda_gibbs", rc)
     launches += 1
+    sparse_launches += topic_index is not None
     return z_out, ndt_out

@@ -5,7 +5,8 @@ replaces the TPU kernel `_predict_kernel` of the reference
 (`repro/kernels/slda_predict.py`); the note at the head of the source
 says what bounds it and what its design does about that.  The plain
 version is `ref.slda_predict_sweeps_chains`.  `launches` counts the
-kernel's launches and nothing else.
+kernel's launches and nothing else; `sparse_launches` counts those of
+them that drew with the sparse two-stage draw (kernel B4).
 """
 from __future__ import annotations
 
@@ -17,16 +18,20 @@ import torch
 from . import build
 
 launches = 0
+sparse_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _F, _P]
+_ARGS = [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _F] + [_P] * 3 + [_I, _P]
 
 
 def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
-                             n_burnin, n_samples, ctr_stride=None):
+                             n_burnin, n_samples, ctr_stride=None,
+                             topic_index=None):
     """tokens int32 / mask f32 [D, N] shared by all chains; seeds int32
-    [M, D]; z0 int32 [M, D, N]; ndt0 f32 [M, D, T]; phi_t f32 [M, W, T].
-    Returns (ndt_avg [M, D, T], z_final [M, D, N]), on the current stream."""
-    global launches
+    [M, D]; z0 int32 [M, D, N]; ndt0 f32 [M, D, T]; phi_t f32 [M, W, T];
+    topic_index None (the dense draw) or the sparse draw's (idx, vmask,
+    occm) of phi_t.  Returns (ndt_avg [M, D, T], z_final [M, D, N]), on
+    the current stream."""
+    global launches, sparse_launches
     M, W, T = phi_t.shape
     D, N = tokens.shape
     dev = tokens.device
@@ -40,6 +45,7 @@ def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
         build.check_operand(name, t, dtype, shape, dev)
     if not 1 <= T <= 256:
         raise ValueError(f"the prediction kernel takes 1 <= T <= 256, got {T}")
+    index = build.topic_index_operands(topic_index, M, W, T, dev)
     ndt_avg = torch.empty_like(ndt0)
     z_out = torch.empty_like(z0)
     if M * D == 0:
@@ -51,9 +57,11 @@ def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
                     ndt_avg.data_ptr(), z_out.data_ptr(), M, D, N, T, W,
                     float(alpha), int(n_burnin), int(n_samples),
                     int(N if ctr_stride is None else ctr_stride),
-                    float(np.float32(1.0 / n_samples)), build.stream_of(dev))
+                    float(np.float32(1.0 / n_samples)), *index,
+                    build.stream_of(dev))
     build.check_launch("slda_predict", rc)
     launches += 1
+    sparse_launches += topic_index is not None
     return ndt_avg, z_out
 
 

@@ -5,7 +5,8 @@ TPU kernel `_train_kernel` of the reference (`repro/kernels/slda_train.py`);
 the note at the head of the source says what bounds it and what its
 design does about that.  The plain version is
 `ref.slda_train_sweeps_chains`.  `launches` counts the kernel's
-launches and nothing else.
+launches and nothing else; `sparse_launches` counts those of them that
+drew with the sparse two-stage draw (kernel B4).
 """
 from __future__ import annotations
 
@@ -16,21 +17,23 @@ import torch
 from . import build
 
 launches = 0
+sparse_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P] * 14 + [_I] * 8 + [_F] * 4 + [_I, _I, _P]
+_ARGS = [_P] * 14 + [_I] * 8 + [_F] * 4 + [_I, _I] + [_P] * 3 + [_I, _P]
 
 
 def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
                            nt, eta, *, alpha, beta, rho, n_sweeps,
                            doc_block, supervised=True, product_form=False,
-                           ctr_stride=None):
+                           ctr_stride=None, topic_index=None):
     """tokens int32 / mask f32 / z0 int32 [M, D, N]; seeds int32 [M, D];
     ndt0 f32 [M, D, T]; y, inv_len f32 [M, D]; ntw_t f32 [M, W, T]; nt,
-    eta f32 [M, T].  Returns (z_final [M, D, N], ndt_final [M, D, T]), on
-    the current stream.  D need not be a multiple of `doc_block`: the
+    eta f32 [M, T]; topic_index None (the dense draw) or the sparse
+    draw's launch-frozen (idx, vmask, occm) of ntw_t.  Returns (z_final
+    [M, D, N], ndt_final [M, D, T]), on the current stream.  D need not be a multiple of `doc_block`: the
     last block of each chain is short, which is the reference's padding
     with empty documents."""
-    global launches
+    global launches, sparse_launches
     M, D, N = tokens.shape
     W, T = ntw_t.shape[-2:]
     dev = tokens.device
@@ -50,6 +53,7 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
         raise ValueError(f"the training kernel takes 1 <= T <= 256, got {T}")
     if n_sweeps < 1 or doc_block < 1:
         raise ValueError(f"n_sweeps={n_sweeps}, doc_block={doc_block}")
+    index = build.topic_index_operands(topic_index, M, W, T, dev)
     z_out = torch.empty_like(z0)
     ndt_out = torch.empty_like(ndt0)
     if M * D == 0:
@@ -68,7 +72,9 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
             z_out, ndt_out, z_buf, local)), M, D, N, T, W, int(doc_block),
             int(n_sweeps), int(N if ctr_stride is None else ctr_stride),
             float(alpha), float(beta), float(W * beta), float(rho),
-            int(supervised), int(product_form), build.stream_of(dev))
+            int(supervised), int(product_form), *index,
+            build.stream_of(dev))
     build.check_launch("slda_train", rc)
     launches += 1
+    sparse_launches += topic_index is not None
     return z_out, ndt_out

@@ -17,7 +17,7 @@ from repro.kernels.slda_predict import (slda_predict_sweeps_chains_jnp,
                                         slda_predict_sweeps_chains_pallas)
 from repro_torch.core.types import counts_from_assignments
 from repro_torch.kernels import (build, ops, ref, slda_gibbs, slda_predict,
-                                 slda_train)
+                                 slda_train, sparse)
 
 MISMATCH_MAX = 1e-3
 ALPHA, BETA, RHO = 0.1, 0.01, 0.5
@@ -260,7 +260,8 @@ def test_build_targets_hopper_without_fast_math():
 @pytest.mark.parametrize("module,stem,fn", [
     (slda_predict, "slda_predict", "slda_predict_sweeps_launch"),
     (slda_gibbs, "slda_gibbs", "slda_gibbs_sweep_launch"),
-    (slda_train, "slda_train", "slda_train_sweeps_launch")])
+    (slda_train, "slda_train", "slda_train_sweeps_launch"),
+    (sparse, "slda_predict", "slda_sparse_draw_launch")])
 
 def test_ctypes_argtypes_match_the_c_launchers(module, stem, fn):
     """The ctypes argument list of each launcher matches its C prototype

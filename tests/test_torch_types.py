@@ -44,21 +44,33 @@ def test_config_fields_and_defaults_match_reference():
     assert port == ref
 
 
-@pytest.mark.parametrize("kw", [dict(length_buckets=4),
-                                dict(sampler_mode="sparse")])
+@pytest.mark.parametrize("kw", [dict(length_buckets=4)])
 def test_config_paths_not_ported_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         types.SLDAConfig(**kw)
 
 
 def test_fused_training_config_builds():
-    """sweeps_per_launch > 1 is ported (kernel B3); the ragged and sparse
-    settings still raise beside it."""
+    """sweeps_per_launch > 1 is ported (kernel B3); the ragged setting
+    still raises beside it."""
     cfg = types.SLDAConfig(sweeps_per_launch=8)
     assert cfg.sweeps_per_launch == 8 and cfg.product_form_sweeps
-    for kw in (dict(length_buckets=4), dict(sampler_mode="sparse")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            types.SLDAConfig(sweeps_per_launch=8, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        types.SLDAConfig(sweeps_per_launch=8, length_buckets=4)
+
+
+def test_sparse_config_builds():
+    """The sparse sampler is ported (kernel B4) at one and several sweeps
+    per launch; ragged buckets still raise beside it, and an unknown
+    sampler mode is refused."""
+    for spl in (1, 8):
+        cfg = types.SLDAConfig(sampler_mode="sparse", sparse_topic_cap=4,
+                               sweeps_per_launch=spl)
+        assert cfg.sampler_mode == "sparse" and cfg.sparse_topic_cap == 4
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        types.SLDAConfig(sampler_mode="sparse", length_buckets=4)
+    with pytest.raises(ValueError, match="sampler_mode"):
+        types.SLDAConfig(sampler_mode="stair")
 
 
 @pytest.mark.parametrize("chains", [None, 3])
