@@ -38,6 +38,31 @@ Phases, one JSON line each:
                  the two settings and sparse at 8: device busy time, idle
                  share and the kernels that take it (for sparse, also
                  where the topic-index build's kernels rank)
+  B5             the attention kernel against its plain version, bf16 and
+                 f32, at qwen3-1.7b's prefill (B 32, Hq 16 / Hkv 8, Dh
+                 128, Sq = Sk = 200 and 512) and decode (Sq 1, Sk 256,
+                 kv_len over 1–256 per row, the tail poisoned) and at small
+                 shapes (MQA, Sq < Sk, non-causal): error, times, SDPA's
+                 time (the yardstick), bound
+  B7             the RMSNorm kernel against its plain version at the
+                 decode step's shapes ([4, 8, 2048], [4, 8·16, 128],
+                 [4, 8·8, 128]) and the prefill's ([4, 8·200, 2048],
+                 [4, 8·200·16, 128]), bf16 and f32: error, times,
+                 F.rms_norm's time, bound
+  lm_parity      qwen3-1.7b at full width cut to 2 layers, f32, 4 chains,
+                 8 slots: the kernel route against the plain route for
+                 forward over a 200-token prompt and for 8 decode steps,
+                 and the fused prefill's last logits against prefill by
+                 decode steps
+  lm_serve       qwen3-1.7b at full width and depth, bf16, 4 chains, 8
+                 slots, 200-token prompts, 32 greedy tokens, Simple
+                 Average, through `ServingEngine.generate`: prefill and
+                 decode times, tokens/s, peak memory, the kernels' launch
+                 counts, and on the first decode step the kernel route's
+                 logits against the plain route's
+  lm_profile     three of lm_serve's decode steps under torch.profiler:
+                 device busy time, the idle share against lm_serve's
+                 unprofiled step, the kernels that take it
 
 then the kernels line, the card line from nvidia-smi, and last
 {"ok": true, "device": {...}}.
@@ -45,7 +70,9 @@ then the kernels line, the card line from nvidia-smi, and last
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -65,6 +92,15 @@ OPS_PER_TOPIC = {"B1": 7, "B2": 25, "B3_log": 25, "B3_product": 21}
 # the dense draw's share of those: the scan add and the compare
 DENSE_DRAW_OPS = 2
 MISMATCH_MAX = 1e-3
+# the LM kernels' bf16 operations run at most at the dense bf16
+# tensor-core rate; float32 ones on the CUDA cores (TF32 stays off)
+PEAK_BF16_S = 989e12
+# each element within tol + tol·|plain| (numpy's allclose, atol = rtol):
+# float32 differs by summation order only; bf16 by one rounding of the
+# output (an ulp is 2^-7 relative)
+B5_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+B7_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+LM_PARITY_TOL = 2e-3
 
 
 def sparse_draw_ops(t: int, cap: int, stage2_share: float) -> float:
@@ -85,6 +121,311 @@ def emit(obj) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+def close_err(got, want, tol):
+    """max |got - want|, and whether every element lies within tol +
+    tol·|want|."""
+    diff = (got.float() - want.float()).abs()
+    return (float(diff.max()) if diff.numel() else 0.0,
+            bool((diff <= tol + tol * want.float().abs()).all()))
+
+
+@contextlib.contextmanager
+def plain_route(flash_attention, rmsnorm, ref):
+    """The LM ops' plain versions on the card, the comparison route: the
+    two wrappers are swapped for the plain versions, so no kernel of
+    theirs launches inside the block."""
+    saved = flash_attention.flash_attention_cuda, rmsnorm.rmsnorm_cuda
+    flash_attention.flash_attention_cuda = (
+        lambda q, k, v, *, causal=True, kv_len=None:
+        ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len))
+    rmsnorm.rmsnorm_cuda = lambda x, w, *, eps=1e-6: ref.ref_rmsnorm(x, w,
+                                                                     eps)
+    try:
+        yield
+    finally:
+        flash_attention.flash_attention_cuda, rmsnorm.rmsnorm_cuda = saved
+
+
+def lm_phases(seed, dev, smi, event_ms, bound_ms):
+    """The phases of the LM serving slice (B5, B7, lm_parity, lm_serve,
+    lm_profile).  Returns their kernels-line rows and the kernels'
+    launches in the lm_serve run."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch import serve_lm
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.kernels import flash_attention, ref, rmsnorm
+    from repro_torch.models import init_params
+    from repro_torch.serving import GenerationConfig, ServingEngine
+    from repro_torch.timing import PhaseTimer
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    rows = {}
+    plain = lambda: plain_route(flash_attention, rmsnorm, ref)  # noqa: E731
+    kernels = (flash_attention, rmsnorm)
+
+    def randn(shape, dtype):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    # ---- B5: the kernel against its plain version on identical inputs
+    for label, B, hq, hkv, sq, sk, dh, causal, ragged in (
+            ("prefill_200", 32, 16, 8, 200, 200, 128, True, False),
+            ("prefill_512", 32, 16, 8, 512, 512, 128, True, False),
+            ("decode_256", 32, 16, 8, 1, 256, 128, True, True),
+            ("small_mqa", 2, 8, 1, 96, 96, 32, True, False),
+            ("small_sq_lt_sk", 1, 4, 2, 16, 80, 32, True, False),
+            ("small_noncausal", 1, 2, 2, 32, 64, 16, False, False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (randn(shape, dtype) for shape in (
+                (B, hq, sq, dh), (B, hkv, sk, dh), (B, hkv, sk, dh)))
+            kv_len = None
+            lim = torch.full((B, sq), sk, device=dev)
+            if ragged:      # kv_len over 1..Sk, the tail poisoned
+                kv_len = torch.linspace(1, sk, B, device=dev).round().int()
+                tail = (torch.arange(sk, device=dev)[None, :]
+                        >= kv_len[:, None])[:, None, :, None]
+                k = k.masked_fill(tail, 1e4)
+                v = v.masked_fill(tail, 1e4)
+                lim = kv_len[:, None].expand(B, sq)
+            if causal:
+                lim = torch.minimum(lim, torch.arange(sq, device=dev)
+                                    + sk - sq + 1).clamp(min=0)
+            out = flash_attention.flash_attention_cuda(
+                q, k, v, causal=causal, kv_len=kv_len)
+            want = ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
+            err, ok = close_err(out, want, B5_TOL[str(dtype)[6:]])
+            if kv_len is None and causal and sq == sk:
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, is_causal=True, enable_gqa=True)
+            else:           # every row's valid keys are a prefix
+                mask = (torch.arange(sk, device=dev)
+                        < lim[..., None])[:, None]         # [B, 1, Sq, Sk]
+                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, attn_mask=mask, enable_gqa=True)
+            lib_err, _ = close_err(lib(), want, 1.0)
+            reps = 5 if sq >= 512 else 20
+            ms = event_ms(lambda: flash_attention.flash_attention_cuda(
+                q, k, v, causal=causal, kv_len=kv_len), reps)
+            plain_ms = event_ms(lambda: ref.ref_attention(
+                q, k, v, causal=causal, kv_len=kv_len), reps)
+            library_ms = event_ms(lib, reps)
+            pairs = float(lim.sum()) * hq
+            elt = q.element_size()
+            valid_kv = float(lim.amax(1).sum()) * hkv * dh * 2 * elt
+            peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_FP32_S
+            b_ms, b_by = bound_ms([q, out], 4 * dh * pairs,
+                                  extra_bytes=valid_kv, peak_ops=peak)
+            row = {"phase": "B5", "shape": label, "dtype": str(dtype)[6:],
+                   "B": B, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk,
+                   "Dh": dh, "causal": causal,
+                   "kv_len": None if kv_len is None else
+                   [int(kv_len.min()), int(kv_len.max())],
+                   "max_abs_err": err, "tol": B5_TOL[str(dtype)[6:]],
+                   "sdpa_max_abs_err": lib_err, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            if label == "decode_256" and dtype == torch.bfloat16:
+                rows["B5"] = row
+            check(ok, f"B5 {label} {dtype}: error {err}")
+
+    # ---- B7 at the decode step's norm shapes, those of the main path's
+    # launches (norm1, norm2 and final_norm [c, b, D]; q_norm and k_norm
+    # [c, b·H, Dh]), and at the prefill's
+    eps = qwen3_1_7b.CONFIG.norm_eps
+    for label, shape in (("decode_hidden", (4, 8, 2048)),
+                         ("decode_q_norm", (4, 8 * 16, 128)),
+                         ("decode_k_norm", (4, 8 * 8, 128)),
+                         ("prefill_hidden", (4, 8 * 200, 2048)),
+                         ("prefill_q_norm", (4, 8 * 200 * 16, 128))):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = randn(shape, dtype)
+            w = 1.0 + 0.1 * randn((shape[0], shape[2]), torch.float32)
+            out = rmsnorm.rmsnorm_cuda(x, w, eps=eps)
+            want = ref.ref_rmsnorm(x, w, eps)
+            err, ok = close_err(out, want, B7_TOL[str(dtype)[6:]])
+            # the library call scales every chain by chain 0's weight: the
+            # same work, a weight row per chain aside
+            w0 = w[0].to(dtype)
+            ms = event_ms(lambda: rmsnorm.rmsnorm_cuda(x, w, eps=eps), 50)
+            plain_ms = event_ms(lambda: ref.ref_rmsnorm(x, w, eps), 20)
+            library_ms = event_ms(lambda: F.rms_norm(
+                x, (shape[2],), w0, eps), 50)
+            b_ms, b_by = bound_ms([x, w, out], 4 * x.numel())
+            row = {"phase": "B7", "label": label, "shape": list(shape),
+                   "dtype": str(dtype)[6:], "max_abs_err": err,
+                   "tol": B7_TOL[str(dtype)[6:]], "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            if label == "decode_hidden" and dtype == torch.bfloat16:
+                rows["B7"] = row
+            check(ok, f"B7 {shape} {dtype}: error {err}")
+
+    # ---- lm_parity: full width, 2 layers, f32; kernel against plain route
+    f32, C, S, P = torch.float32, 4, 8, 200
+    cfg = dataclasses.replace(qwen3_1_7b.CONFIG, n_layers=2)
+    model = init_params(cfg, C, f32, device=dev, generator=gen)
+    prompts = serve_lm.make_prompts(cfg.vocab_size, S, P, seed, dev)
+    toks = prompts[None].expand(C, S, P)
+
+    def decode(n):
+        cache = model.init_cache(S, 256, f32)
+        outs = []
+        for t in range(n):
+            lg, cache = model.decode_step(cache, toks[:, :, t:t + 1],
+                                          compute_dtype=f32)
+            outs.append(lg)
+        return torch.cat(outs, 2)
+
+    fwd = model(toks, compute_dtype=f32)
+    with plain():
+        for mod in kernels:
+            mod.launches = 0
+        fwd_err = float((fwd - model(toks, compute_dtype=f32)).abs().max())
+        plain_launches = sum(mod.launches for mod in kernels)
+    del fwd
+    dec = decode(8)
+    with plain():
+        dec_err = float((dec - decode(8)).abs().max())
+    fused = model(toks, compute_dtype=f32, last_token_only=True)
+    pre_err = float((fused - decode(P)[:, :, -1:]).abs().max())
+    row = {"phase": "lm_parity", "arch": cfg.name, "layers": cfg.n_layers,
+           "dtype": "float32", "chains": C, "slots": S, "prompt_len": P,
+           "forward_max_abs_err": fwd_err, "decode8_max_abs_err": dec_err,
+           "fused_vs_decode_prefill_max_abs_err": pre_err,
+           "tol": LM_PARITY_TOL, "plain_route_launches": plain_launches}
+    emit(row)
+    check(plain_launches == 0, "lm_parity: the plain route launched")
+    check(max(fwd_err, dec_err, pre_err) <= LM_PARITY_TOL,
+          f"lm_parity: {row}")
+    del model, dec, fused
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- lm_serve: the slice's main path at full width and depth
+    bf16, NEW, MAX_LEN = torch.bfloat16, 32, 256
+    model = serve_lm.build_model("qwen3-1.7b", smoke=False, chains=C,
+                                 dtype=bf16, device=dev, seed=seed)
+    cfg = model.cfg
+    prompts = serve_lm.make_prompts(cfg.vocab_size, S, P, seed, dev)
+    toks = prompts[None].expand(C, S, P)
+    engine = ServingEngine(model, batch_slots=S, max_len=MAX_LEN,
+                           gen=GenerationConfig(max_new_tokens=NEW,
+                                                combine="simple"),
+                           compute_dtype=bf16)
+    model(toks[:, :, :8], compute_dtype=bf16, last_token_only=True)  # warm
+    engine.prefill(prompts[:, :4])
+    engine.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in kernels:
+        mod.launches = 0
+    timer = PhaseTimer(dev)
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, timer=timer)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {"B5": flash_attention.launches, "B7": rmsnorm.launches}
+    peak_bytes = torch.cuda.max_memory_allocated()
+    ms = timer.ms()
+    n_dec = sum(1 for phase, _, _ in timer.spans if phase == "decode")
+    steps = P + n_dec
+    per_step = {"B5": cfg.n_layers, "B7": 4 * cfg.n_layers + 1}
+
+    for mod in kernels:
+        mod.launches = 0
+    fused = model(toks, compute_dtype=bf16, last_token_only=True)
+    torch.cuda.synchronize()
+    fused_launches = {"B5": flash_attention.launches,
+                      "B7": rmsnorm.launches}
+    fused_ms = event_ms(lambda: model(toks, compute_dtype=bf16,
+                                      last_token_only=True), 3)
+
+    # the first decode step after the prefill, by each route, from one
+    # cache state (the K/V the step writes are put back in between)
+    engine.reset()
+    last = engine.prefill(prompts)
+    saved = [(lc["k"].clone(), lc["v"].clone())
+             for lc in engine.cache["layers"]]
+    logits_k, _ = model.decode_step(engine.cache, last, compute_dtype=bf16)
+    for lc, (k, v) in zip(engine.cache["layers"], saved):
+        lc["k"].copy_(k)
+        lc["v"].copy_(v)
+    with plain():
+        logits_p, _ = model.decode_step(engine.cache, last,
+                                        compute_dtype=bf16)
+    step_err = float((logits_k.float() - logits_p.float()).abs().max())
+    agree_rows = float((logits_k.argmax(-1) == logits_p.argmax(-1))
+                       .float().mean())
+    mixed = [engine._combine(lg, engine.chain_weights).argmax(-1)
+             for lg in (logits_k, logits_p)]
+    agree_slots = float((mixed[0] == mixed[1]).float().mean())
+    finite = bool(logits_k.isfinite().all() and fused.isfinite().all())
+    in_vocab = bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    row = {"phase": "lm_serve", "card": smi, "arch": cfg.name,
+           "layers": cfg.n_layers, "dtype": "bfloat16", "chains": C,
+           "slots": S, "prompt_len": P, "max_len": MAX_LEN,
+           "new_tokens": n_dec, "combine": "simple",
+           "prefill_by_decode_ms": ms["prefill"],
+           "fused_prefill_ms": fused_ms,
+           "decode_ms_per_step": ms["decode"] / n_dec,
+           "tokens_per_s": S * n_dec / (ms["decode"] / 1e3),
+           "generate_wall_s": wall_s,
+           "max_memory_allocated": peak_bytes,
+           "launches": launches, "launches_per_step": {
+               k: v / steps for k, v in launches.items()},
+           "fused_prefill_launches": fused_launches,
+           "first_step_max_abs_logit_diff": step_err,
+           "first_step_argmax_agreement_rows": agree_rows,
+           "first_step_greedy_agreement_slots": agree_slots,
+           "finite_logits": finite, "tokens_in_vocab": in_vocab,
+           "tokens_slot0": out[0].tolist()}
+    emit(row)
+    check(finite, "lm_serve: non-finite logits")
+    check(in_vocab, "lm_serve: tokens outside the vocabulary")
+    check(launches == {k: v * steps for k, v in per_step.items()},
+          f"lm_serve: launches {launches} over {steps} steps")
+    check(fused_launches == per_step,
+          f"lm_serve: fused prefill launches {fused_launches}")
+
+    # ---- where a decode step's time goes: three steps of the engine
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0.0))
+    tok = last
+    engine._decode(tok, None)                             # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tok, _ = engine._decode(tok, None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                 key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in ops) / 1e3
+    # the profiler slows the host: the idle share is taken against
+    # lm_serve's unprofiled step, and against the profiled wall beside it
+    step_ms = ms["decode"] / n_dec
+    emit({"phase": "lm_profile", "steps": 3, "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms, "unprofiled_step_ms": step_ms,
+          "device_idle_share": 1.0 - busy_ms / (3 * step_ms) if ops
+          else None,
+          "device_idle_share_profiled_wall": 1.0 - busy_ms / wall_ms
+          if ops else None,
+          "device_kernels": sum(e.count for e in ops),
+          "top_kernels": [{"name": e.key[:70], "calls": e.count,
+                           "ms": dev_us(e) / 1e3} for e in ops[:10]]})
+    del model, engine, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, launches
 
 
 def main() -> int:
@@ -152,10 +493,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return s.elapsed_time(e) / reps
 
-    def bound_ms(tensors, n_ops, extra_bytes=0):
+    def bound_ms(tensors, n_ops, extra_bytes=0, peak_ops=PEAK_FP32_S):
         nbytes = extra_bytes + sum(t.numel() * t.element_size()
                                    for t in tensors)
-        by_bytes, by_ops = nbytes / PEAK_BYTES_S, n_ops / PEAK_FP32_S
+        by_bytes, by_ops = nbytes / PEAK_BYTES_S, n_ops / peak_ops
         return (max(by_bytes, by_ops) * 1e3,
                 "bytes" if by_bytes >= by_ops else "operations")
 
@@ -677,14 +1018,21 @@ def main() -> int:
                             if e.key in index_kernels]}
         emit(line)
 
+    # ---- the LM serving slice: B5, B7, lm_parity, lm_serve
+    lm_rows, lm_launches = lm_phases(args.seed, dev, smi, event_ms,
+                                     bound_ms)
+    rows.update(lm_rows)
+
     # each kernel's launches in the run of the path it carries; B4 runs
-    # inside every sparse launch of B1–B3, at both settings
+    # inside every sparse launch of B1–B3, at both settings; B5 and B7 in
+    # lm_serve's generate
     sparse_runs = [counted["end_to_end_sparse", s][1] for s in (1, 8)]
     launches_of = {
         "B1": counted["end_to_end", 1][0]["B1"],
         "B2": counted["end_to_end", 1][0]["B2"],
         "B3": counted["end_to_end_fused", 8][0]["B3"],
-        "B4": sum(sum(run.values()) for run in sparse_runs)}
+        "B4": sum(sum(run.values()) for run in sparse_runs),
+        **lm_launches}
     sources = {"B1": ("slda_predict_sweeps", "slda_predict.cu",
                       "src/repro/kernels/slda_predict.py:119"),
                "B2": ("slda_gibbs_sweep", "slda_gibbs.cu",
@@ -692,7 +1040,11 @@ def main() -> int:
                "B3": ("slda_train_sweeps", "slda_train.cu",
                       "src/repro/kernels/slda_train.py:99"),
                "B4": ("sparse_two_stage_draw", "slda_common.cuh",
-                      "src/repro/kernels/sparse.py:53")}
+                      "src/repro/kernels/sparse.py:53"),
+               "B5": ("flash_attention", "flash_attention.cu",
+                      "src/repro/kernels/flash_attention.py:26"),
+               "B7": ("rmsnorm", "rmsnorm.cu",
+                      "src/repro/kernels/rmsnorm.py:12")}
     emit({"kernels": [{
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{src}", "replaces": rep,
@@ -701,7 +1053,7 @@ def main() -> int:
                                    rows[k].get("one_sweep_max_abs_err")),
         "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
         "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k]["bound_by"],
-        "library_ms": None}
+        "library_ms": rows[k].get("library_ms")}
         for k, (name, src, rep) in sources.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,9 +1,9 @@
 """Carries the reference's arrays across into the port's objects.
 
 Each function takes the fields of the reference's `Corpus`, `SLDAModel`
-or `GibbsState` as numpy arrays (or anything `np.asarray` accepts) in the
-reference's layouts and returns the port's object on `device`, so that
-both packages can compute on the same inputs.
+or `GibbsState`, or its LM parameter tree, as numpy arrays (or anything
+`np.asarray` accepts) in the reference's layouts and returns the port's
+object on `device`, so that both packages can compute on the same inputs.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core.types import Corpus, GibbsState, SLDAModel
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import Init
+from repro_torch.models.transformer import Transformer
 
 
 def _t(a, dtype, dev):
@@ -38,3 +40,48 @@ def state_from_numpy(z, ndt, ntw, nt, eta, *, device="cuda") -> GibbsState:
                       **{k: _t(a, torch.float32, dev) for k, a in
                          (("ndt", ndt), ("ntw", ntw), ("nt", nt),
                           ("eta", eta))})
+
+
+def _np_tensor(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":            # ml_dtypes: exact via float32
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree, prefix, out):
+    for key, val in tree.items():
+        name = f"{prefix}.{key}"
+        if isinstance(val, dict):
+            _flatten(val, name, out)
+        else:
+            out[name] = val
+
+
+def lm_params_from_numpy(tree, cfg, *, device="cuda") -> Transformer:
+    """The port's model from the reference's `init_params` tree (numpy
+    leaves, chain axis leading), in the list layout (`layers`) or the
+    stacked one of `scan_layers` (`layers_stacked`, leaves [L, C, ...]),
+    which is unstacked.  The weights keep the tree's dtype."""
+    dev = resolve_device(device)
+    if "layers_stacked" in tree:
+        stacked = {}
+        _flatten(tree["layers_stacked"], "", stacked)
+        layers = [{k[1:]: np.asarray(a)[i] for k, a in stacked.items()}
+                  for i in range(cfg.n_layers)]
+    else:
+        layers = []
+        for lp in tree["layers"]:
+            flat = {}
+            _flatten(lp, "", flat)
+            layers.append({k[1:]: a for k, a in flat.items()})
+    state = {"embed": tree["embed"]["table"],
+             "final_norm": tree["final_norm"]}
+    if "lm_head" in tree:
+        state["lm_head"] = tree["lm_head"]
+    for i, lp in enumerate(layers):
+        state.update({f"layers.{i}.{k}": a for k, a in lp.items()})
+    table = _np_tensor(state["embed"])
+    model = Transformer(cfg, table.shape[0], table.dtype, init=Init(dev))
+    model.load_state_dict({k: _np_tensor(a) for k, a in state.items()})
+    return model

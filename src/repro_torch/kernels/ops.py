@@ -1,8 +1,8 @@
-"""The three sampler operations the core calls, routed by device.
+"""The operations the core and the models call, routed by device.
 
 A CUDA tensor goes to the hand-written kernel (`slda_gibbs`,
-`slda_train`, `slda_predict`), or the kernel raises; a CPU tensor goes to
-the plain version in `ref`.  There is no other route and no fallback.
+`slda_train`, `slda_predict`, `flash_attention`, `rmsnorm`), or the
+kernel raises; a CPU tensor goes to the plain version in `ref`.  There is no other route and no fallback.
 The ops are the reference's `chain_axis=True` forms and keep its
 layouts: tables come in as `[M, T, W]` and are transposed to the
 row-gather `[M, W, T]` layout here, inside the op.  With
@@ -13,7 +13,11 @@ version beside the table.
 """
 from __future__ import annotations
 
+import torch
+
+from . import flash_attention as _flash
 from . import ref, slda_gibbs, slda_predict, slda_train
+from . import rmsnorm as _rmsnorm
 from .sparse import build_topic_index
 
 
@@ -100,3 +104,33 @@ def slda_predict_sweeps(tokens, mask, z0, ndt0, phi, seeds, *, alpha,
             tokens, mask, seeds, z0, ndt0, phi_t), **kw)
     return ref.slda_predict_sweeps_chains(tokens, mask, seeds, z0, ndt0,
                                           phi_t, **kw)
+
+
+def attention(q, k, v, *, causal=True, kv_len=None):
+    """Causal GQA attention, `ref.ref_attention`'s semantics at every
+    shape.  q [B, Hq, Sq, Dh]; k, v [B, Hkv, Sk, Dh]; kv_len optional
+    [B].  Nothing is padded: the kernel's grid covers the ragged last
+    block itself, so the causal diagonal stays at Sk - Sq of the true
+    shapes (the reference's padded Pallas route shifts it)."""
+    if _route(q):
+        if kv_len is not None:
+            kv_len = kv_len.to(torch.int32).contiguous()
+        return _flash.flash_attention_cuda(*_dense(q, k, v), causal=causal,
+                                           kv_len=kv_len)
+    return ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
+
+
+def rmsnorm(x, w, *, eps=1e-6):
+    """RMSNorm of the rows of x [..., D]: w [D] scales every row, w
+    [C, D] the rows of chain c (x [C, ..., D]) by w[c]."""
+    D = x.shape[-1]
+    C = 1 if w.ndim == 1 else w.shape[0]
+    if w.shape[-1] != D or (w.ndim == 2 and (x.ndim < 2 or x.shape[0] != C)):
+        raise ValueError(f"rmsnorm: x {tuple(x.shape)} with w "
+                         f"{tuple(w.shape)}")
+    if _route(x):
+        y = _rmsnorm.rmsnorm_cuda(
+            x.reshape(C, -1, D).contiguous(),
+            w.to(torch.float32).reshape(C, D).contiguous(), eps=eps)
+        return y.reshape(x.shape)
+    return ref.ref_rmsnorm(x, w, eps)

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the three sampler kernels.
+"""Plain PyTorch versions of the kernels: the three samplers, attention
+(B5) and RMSNorm (B7).
 
 They are the kernels' semantics written as tensor code: the CPU route of
 `kernels.ops`, and what `chip_smoke.py` holds the CUDA kernels against on
@@ -326,3 +327,49 @@ def slda_predict_sweeps_chains(tokens, mask, seeds, z0, ndt0, phi_t, *,
         lambda s, n: counter_uniform(seeds_f, s * stride + n),
         _fold_index(topic_index))
     return avg.reshape(M, D, T), z.reshape(M, D, N)
+
+
+# ------------------------------------------------------------ attention
+
+def ref_attention(q, k, v, *, causal=True, kv_len=None):
+    """Plain B5, the reference's softmax attention oracle.
+
+    q [B, Hq, Sq, Dh]; k, v [B, Hkv, Sk, Dh] with Hq % Hkv == 0 (query
+    head h reads KV head h // (Hq / Hkv)); kv_len optional int [B], the
+    valid KV prefix of each row (decode against a padded cache).  Causal
+    row i sees keys j <= i + Sk - Sq (the queries are the last Sq
+    positions).  Masked logits are -inf, so a row with no valid key is
+    NaN, as in the oracle.  Logits are scaled by Dh ** -0.5.  Computes in
+    float32; returns q's dtype."""
+    B, Hq, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    rep = Hq // Hkv
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (
+        Dh ** -0.5)
+    ki = torch.arange(Sk, device=q.device)
+    if causal and Sq > 1:
+        qi = torch.arange(Sq, device=q.device)[:, None] + (Sk - Sq)
+        logits = logits.masked_fill(ki[None, :] > qi, float("-inf"))
+    if kv_len is not None:
+        valid = ki[None, :] < kv_len.to(q.device)[:, None]         # [B, Sk]
+        logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, dim=-1),
+                       v.float())
+    return out.to(q.dtype)
+
+
+# -------------------------------------------------------------- rmsnorm
+
+def ref_rmsnorm(x, w, eps=1e-6):
+    """Plain B7: float32 mean of squares, rsqrt(var + eps), scale by w,
+    cast back to x's dtype.  w [D] scales every row; w [C, D] scales the
+    rows of chain c (x [C, ..., D]) by w[c], as `models.layers.rmsnorm`
+    broadcasts it."""
+    xf = x.float()
+    var = xf.square().mean(-1, keepdim=True)
+    w = w.float()
+    if w.ndim == 2:
+        w = w.reshape((w.shape[0],) + (1,) * (x.ndim - 2) + (w.shape[-1],))
+    return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)

@@ -10,11 +10,14 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import serve_lm
+from repro_torch.configs import SMOKES
 from repro_torch.convert import corpus_from_numpy
 from repro_torch.core import SLDAConfig, partition, run_nonparallel
 from repro_torch.core import train_chains, predict_chains
 from repro_torch.data import make_slda_corpus, train_test_split
 from repro_torch.device import check_full_fp32
+from repro_torch.models import init_params
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
@@ -64,6 +67,28 @@ def test_cpu_run_loads_no_jax_and_no_reference_module():
     assert "BAD []" in out.stdout
 
 
+def test_serve_lm_cpu_run_loads_no_jax_and_no_reference_module():
+    """`python -m repro_torch.serve_lm --smoke --device cpu`, run in a
+    process of its own, generates and imports nothing of JAX."""
+    prog = textwrap.dedent("""
+        import sys
+        from repro_torch import serve_lm
+        res = serve_lm.main(["--smoke", "--device", "cpu", "--prompt-len",
+                             "12", "--new-tokens", "3", "--combine",
+                             "weighted"])
+        assert len(res["tokens"]) == 8 and len(res["tokens"][0]) == 3
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("BAD", bad)
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run([sys.executable, "-c", prog], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "BAD []" in out.stdout
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -85,6 +110,10 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         predict_chains(0, models, te, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         corpus_from_numpy(c.tokens.numpy(), c.mask.numpy(), c.y.numpy())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(SMOKES["qwen3-1.7b"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_lm.main(["--smoke"])
 
 
 def test_tf32_is_refused(monkeypatch):
