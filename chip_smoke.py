@@ -41,19 +41,23 @@ Phases, one JSON line each:
   B5             the attention kernel against its plain version, bf16 and
                  f32, at qwen3-1.7b's prefill (B 32, Hq 16 / Hkv 8, Dh
                  128, Sq = Sk = 200 and 512) and decode (Sq 1, Sk 256,
-                 kv_len over 1–256 per row, the tail poisoned) and at small
-                 shapes (MQA, Sq < Sk, non-causal): error, times, SDPA's
-                 time (the yardstick), bound
+                 kv_len over 1–256 per row, the tail poisoned), at
+                 zamba2-2.7b's shared block (Hq = Hkv = 32, Dh 80; prefill
+                 200 and decode 256) and at small shapes (MQA, Sq < Sk,
+                 non-causal): error, times, SDPA's time (the yardstick),
+                 bound
   B7             the RMSNorm kernel against its plain version at the
                  decode step's shapes ([4, 8, 2048], [4, 8·16, 128],
-                 [4, 8·8, 128]) and the prefill's ([4, 8·200, 2048],
-                 [4, 8·200·16, 128]), bf16 and f32: error, times,
-                 F.rms_norm's time, bound
+                 [4, 8·8, 128], mamba2's [4, 8, 4096]) and the prefill's
+                 ([4, 8·200, 2048], [4, 8·200·16, 128], [4, 8·200,
+                 4096]), bf16 and f32: error, times, F.rms_norm's time,
+                 bound
   lm_parity      qwen3-1.7b at full width cut to 2 layers, f32, 4 chains,
                  8 slots: the kernel route against the plain route for
                  forward over a 200-token prompt and for 8 decode steps,
                  and the fused prefill's last logits against prefill by
-                 decode steps
+                 decode steps, within 2e-3 on the logits' scale (atol
+                 2e-3·max(1, their rms), rtol 2e-3, as the CPU tests)
   lm_serve       qwen3-1.7b at full width and depth, bf16, 4 chains, 8
                  slots, 200-token prompts, 32 greedy tokens, Simple
                  Average, through `ServingEngine.generate`: prefill and
@@ -63,6 +67,23 @@ Phases, one JSON line each:
   lm_profile     three of lm_serve's decode steps under torch.profiler:
                  device busy time, the idle share against lm_serve's
                  unprofiled step, the kernels that take it
+  B6             the SSD scan kernel against its plain version, bf16 and
+                 f32, at mamba2-1.3b's fused prefill (C 4, b 8, s 200 and
+                 512, H 64, P 64, N 128), zamba2-2.7b's (H 80, N 64), the
+                 reference's small grid, one step, chunks that do not
+                 divide s, against the sequential oracle, and where the
+                 masked exponent overflows: error, finiteness, times,
+                 bound (no PyTorch call computes it)
+  ssm_parity     mamba2-1.3b at full width cut to 2 layers, and
+  hybrid_parity  zamba2-2.7b at full width cut to 12 layers (two
+                 applications of the shared block), as lm_parity, with
+                 each forward's launch counts; zamba2's kernel route
+                 within 0.1 of its plain route (HYBRID_ROUTE_TOL)
+  ssm_serve      mamba2-1.3b at full width and depth as lm_serve, with
+                 Weighted Average: its chain weights from one full forward
+                 over the prompts (48 B6 launches), then generate (none),
+                 then the fused prefill (48)
+  ssm_profile    three of ssm_serve's decode steps, as lm_profile
 
 then the kernels line, the card line from nvidia-smi, and last
 {"ok": true, "device": {...}}.
@@ -70,7 +91,6 @@ then the kernels line, the card line from nvidia-smi, and last
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import gc
 import json
@@ -100,7 +120,18 @@ PEAK_BF16_S = 989e12
 # output (an ulp is 2^-7 relative)
 B5_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 B7_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# B6: float32 the reference's own tolerance for its scan
+# (tests/test_kernels.py); bf16 one rounding of the output
+B6_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+# float32 logits in parity_phase, held as the CPU tests hold them: atol
+# tol·max(1, rms of the plain logits), rtol tol.  LM_PARITY_TOL for each
+# comparison but zamba2's kernel route against its plain route: cut to 12
+# layers with random weights, its first positions move by up to 0.083
+# under one float32 rounding of noise on the embeddings, and the route's
+# gap (B7's few ulps a norm; B6 adds none) needs up to 0.056
+# (`python -m repro_torch.route_parity`, seeds 0-7, on the H100)
 LM_PARITY_TOL = 2e-3
+HYBRID_ROUTE_TOL = 0.1
 
 
 def sparse_draw_ops(t: int, cap: int, stage2_share: float) -> float:
@@ -131,49 +162,242 @@ def close_err(got, want, tol):
             bool((diff <= tol + tol * want.float().abs()).all()))
 
 
-@contextlib.contextmanager
-def plain_route(flash_attention, rmsnorm, ref):
-    """The LM ops' plain versions on the card, the comparison route: the
-    two wrappers are swapped for the plain versions, so no kernel of
-    theirs launches inside the block."""
-    saved = flash_attention.flash_attention_cuda, rmsnorm.rmsnorm_cuda
-    flash_attention.flash_attention_cuda = (
-        lambda q, k, v, *, causal=True, kv_len=None:
-        ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len))
-    rmsnorm.rmsnorm_cuda = lambda x, w, *, eps=1e-6: ref.ref_rmsnorm(x, w,
-                                                                     eps)
-    try:
-        yield
-    finally:
-        flash_attention.flash_attention_cuda, rmsnorm.rmsnorm_cuda = saved
+def reset_launches():
+    from repro_torch.route_parity import kernel_modules
+    for mod in kernel_modules().values():
+        mod.launches = 0
 
 
-def lm_phases(seed, dev, smi, event_ms, bound_ms):
-    """The phases of the LM serving slice (B5, B7, lm_parity, lm_serve,
-    lm_profile).  Returns their kernels-line rows and the kernels'
-    launches in the lm_serve run."""
+def read_launches():
+    from repro_torch.route_parity import kernel_modules
+    return {k: mod.launches for k, mod in kernel_modules().items()}
+
+
+def launches_per_pass(cfg):
+    """The LM kernels' launches in one forward pass and in one decode step
+    of `cfg`: B5 once per attention (an 'A' layer or an application of the
+    shared block), B6 once per 'M' layer in a forward pass and never in a
+    decode step (the recurrence), B7 once per norm (two a layer or shared
+    block, two more for qk-norm, and the final norm)."""
+    shared = (cfg.n_layers // cfg.shared_attn_every
+              if cfg.shared_attn_every else 0)
+    attn = cfg.pattern.count("A") + shared
+    mamba = cfg.pattern.count("M")
+    norms = attn * (4 if cfg.qk_norm else 2) + 2 * mamba + 1
+    return ({"B5": attn, "B6": mamba, "B7": norms},
+            {"B5": attn, "B6": 0, "B7": norms})
+
+
+def cache_tensors(tree):
+    """Every tensor of a decode cache, in a fixed order."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from cache_tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from cache_tensors(v)
+    else:
+        yield tree
+
+
+def parity_phase(phase, cfg, seed, dev, route_tol=LM_PARITY_TOL):
+    """`cfg` in float32, 4 chains, 8 slots, 200-token prompts, random
+    weights from `seed` (`route_parity.route_gaps`): the kernel route
+    against the plain route for forward over the prompts and for 8 decode
+    steps, each within `route_tol`, and the fused prefill's last logits
+    against prefill by decode steps within LM_PARITY_TOL, on the logits'
+    scale (atol tol·max(1, rms of the plain logits), rtol tol, as the CPU
+    tests).  The plain route launches nothing; the kernel route's forward
+    launches what `launches_per_pass` says."""
     import torch
-    from torch.nn import functional as F
+    from repro_torch.route_parity import route_gaps
+
+    row = {"phase": phase, "dtype": "float32", **route_gaps(cfg, seed, dev),
+           "route_tol": route_tol, "tol": LM_PARITY_TOL}
+    emit(row)
+    per_forward, _ = launches_per_pass(cfg)
+    check(row["plain_route_launches"] == 0, f"{phase}: the plain route "
+          f"launched")
+    check(row["forward_launches"] == per_forward,
+          f"{phase}: forward launches {row['forward_launches']}, not "
+          f"{per_forward}")
+    check(max(row["forward"][0], row["decode8"][0]) <= route_tol
+          and row["fused_vs_decode_prefill"][0] <= LM_PARITY_TOL,
+          f"{phase}: {row}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
+    """`arch` at full width and depth (random weights from `seed`), bf16,
+    4 chains, 8 slots, 200-token prompts, 32 greedy tokens through
+    `ServingEngine.generate` under `combine`; with "weighted" the chain
+    weights come from `serve_lm.inverse_loss_weights` (one full forward
+    pass), timed and counted as part of the served run.  Then the fused
+    prefill, timed, and on the first decode step after the prefill the
+    kernel route's logits against the plain route's.  Checks finite
+    logits, tokens in the vocabulary and every kernel's launches.
+    Returns (the engine after its prefill, the token it feeds next, the
+    unprofiled ms per decode step, the served run's launches)."""
+    import torch
     from repro_torch import serve_lm
-    from repro_torch.configs import qwen3_1_7b
-    from repro_torch.kernels import flash_attention, ref, rmsnorm
-    from repro_torch.models import init_params
+    from repro_torch.route_parity import plain_route
     from repro_torch.serving import GenerationConfig, ServingEngine
     from repro_torch.timing import PhaseTimer
 
+    bf16, C, S, P, NEW, MAX_LEN = torch.bfloat16, 4, 8, 200, 32, 256
+    model = serve_lm.build_model(arch, smoke=False, chains=C, dtype=bf16,
+                                 device=dev, seed=seed)
+    cfg = model.cfg
+    prompts = serve_lm.make_prompts(cfg.vocab_size, S, P, seed, dev)
+    toks = prompts[None].expand(C, S, P)
+    gen_cfg = GenerationConfig(max_new_tokens=NEW, combine=combine)
+    model(toks[:, :, :8], compute_dtype=bf16, last_token_only=True)  # warm
+    ServingEngine(model, batch_slots=S, max_len=MAX_LEN, gen=gen_cfg,
+                  compute_dtype=bf16).prefill(prompts[:, :4])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    timer = PhaseTimer(dev)
+    t0 = time.perf_counter()
+    weights = None
+    if combine == "weighted":
+        with timer("weights"):
+            weights = serve_lm.inverse_loss_weights(model, prompts, bf16)
+    weight_launches = read_launches()
+    engine = ServingEngine(model, batch_slots=S, max_len=MAX_LEN,
+                           gen=gen_cfg, chain_weights=weights,
+                           compute_dtype=bf16)
+    out = engine.generate(prompts, timer=timer)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_launches()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    ms = timer.ms()
+    n_dec = sum(1 for name, _, _ in timer.spans if name == "decode")
+    steps = P + n_dec
+    per_forward, per_step = launches_per_pass(cfg)
+    gen_launches = {k: v - weight_launches[k] for k, v in launches.items()}
+
+    reset_launches()
+    fused = model(toks, compute_dtype=bf16, last_token_only=True)
+    torch.cuda.synchronize()
+    fused_launches = read_launches()
+    fused_ms = event_ms(lambda: model(toks, compute_dtype=bf16,
+                                      last_token_only=True), 3)
+
+    # the first decode step after the prefill, by each route, from one
+    # cache state (what the step writes in place is put back in between)
+    engine.reset()
+    last = engine.prefill(prompts)
+    saved = [t.clone() for t in cache_tensors(engine.cache)]
+    logits_k, _ = model.decode_step(engine.cache, last, compute_dtype=bf16)
+    for t, s in zip(cache_tensors(engine.cache), saved):
+        t.copy_(s)
+    del saved
+    with plain_route():
+        logits_p, _ = model.decode_step(engine.cache, last,
+                                        compute_dtype=bf16)
+    step_err = float((logits_k.float() - logits_p.float()).abs().max())
+    agree_rows = float((logits_k.argmax(-1) == logits_p.argmax(-1))
+                       .float().mean())
+    mixed = [engine._combine(lg, engine.chain_weights).argmax(-1)
+             for lg in (logits_k, logits_p)]
+    agree_slots = float((mixed[0] == mixed[1]).float().mean())
+    finite = bool(logits_k.isfinite().all() and fused.isfinite().all())
+    in_vocab = bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    step_ms = ms["decode"] / n_dec
+    row = {"phase": phase, "card": smi, "arch": cfg.name,
+           "layers": cfg.n_layers, "dtype": "bfloat16", "chains": C,
+           "slots": S, "prompt_len": P, "max_len": MAX_LEN,
+           "new_tokens": n_dec, "combine": combine,
+           "chain_weights": None if weights is None else weights.tolist(),
+           "weights_ms": ms.get("weights"),
+           "prefill_by_decode_ms": ms["prefill"],
+           "fused_prefill_ms": fused_ms,
+           "decode_ms_per_step": step_ms,
+           "tokens_per_s": S * n_dec / (ms["decode"] / 1e3),
+           "generate_wall_s": wall_s,
+           "max_memory_allocated": peak_bytes,
+           "launches": launches, "weights_launches": weight_launches,
+           "launches_per_step": {k: v / steps
+                                 for k, v in gen_launches.items()},
+           "fused_prefill_launches": fused_launches,
+           "first_step_max_abs_logit_diff": step_err,
+           "first_step_argmax_agreement_rows": agree_rows,
+           "first_step_greedy_agreement_slots": agree_slots,
+           "finite_logits": finite, "tokens_in_vocab": in_vocab,
+           "tokens_slot0": out[0].tolist()}
+    emit(row)
+    check(finite, f"{phase}: non-finite logits")
+    check(in_vocab, f"{phase}: tokens outside the vocabulary")
+    check(gen_launches == {k: v * steps for k, v in per_step.items()},
+          f"{phase}: launches {gen_launches} over {steps} steps")
+    check(weight_launches == (per_forward if weights is not None else
+                              {k: 0 for k in per_forward}),
+          f"{phase}: chain weights' launches {weight_launches}")
+    check(fused_launches == per_forward,
+          f"{phase}: fused prefill launches {fused_launches}")
+    return engine, last, step_ms, launches
+
+
+def profile_phase(phase, engine, tok, step_ms):
+    """Three of the engine's decode steps under torch.profiler: device busy
+    time, its idle share against the unprofiled step `step_ms` (the
+    profiler slows the host) and against the profiled wall, and the
+    kernels that take the time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
+                               getattr(e, "self_cuda_time_total", 0.0))
+    engine._decode(tok, None)                             # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tok, _ = engine._decode(tok, None)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = sorted((e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
+                 key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in ops) / 1e3
+    emit({"phase": phase, "steps": 3, "wall_ms": wall_ms,
+          "device_busy_ms": busy_ms, "unprofiled_step_ms": step_ms,
+          "device_idle_share": 1.0 - busy_ms / (3 * step_ms) if ops
+          else None,
+          "device_idle_share_profiled_wall": 1.0 - busy_ms / wall_ms
+          if ops else None,
+          "device_kernels": sum(e.count for e in ops),
+          "top_kernels": [{"name": e.key[:70], "calls": e.count,
+                           "ms": dev_us(e) / 1e3} for e in ops[:10]]})
+
+
+def lm_phases(seed, dev, smi, event_ms, bound_ms):
+    """The phases of the dense LM serving slice (B5, B7, lm_parity,
+    lm_serve, lm_profile).  Returns their kernels-line rows and the
+    kernels' launches in the lm_serve run."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.configs import qwen3_1_7b
+    from repro_torch.kernels import flash_attention, ref, rmsnorm
+
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
-    plain = lambda: plain_route(flash_attention, rmsnorm, ref)  # noqa: E731
-    kernels = (flash_attention, rmsnorm)
 
     def randn(shape, dtype):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
 
-    # ---- B5: the kernel against its plain version on identical inputs
+    # ---- B5: the kernel against its plain version on identical inputs;
+    # Dh 128 is qwen3-1.7b's, Dh 80 the zamba2-2.7b shared block's
     for label, B, hq, hkv, sq, sk, dh, causal, ragged in (
             ("prefill_200", 32, 16, 8, 200, 200, 128, True, False),
             ("prefill_512", 32, 16, 8, 512, 512, 128, True, False),
             ("decode_256", 32, 16, 8, 1, 256, 128, True, True),
+            ("prefill_200_dh80", 32, 32, 32, 200, 200, 80, True, False),
+            ("decode_256_dh80", 32, 32, 32, 1, 256, 80, True, True),
             ("small_mqa", 2, 8, 1, 96, 96, 32, True, False),
             ("small_sq_lt_sk", 1, 4, 2, 16, 80, 32, True, False),
             ("small_noncausal", 1, 2, 2, 32, 64, 16, False, False)):
@@ -231,15 +455,18 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
                 rows["B5"] = row
             check(ok, f"B5 {label} {dtype}: error {err}")
 
-    # ---- B7 at the decode step's norm shapes, those of the main path's
+    # ---- B7 at the decode step's norm shapes, those of the main paths'
     # launches (norm1, norm2 and final_norm [c, b, D]; q_norm and k_norm
-    # [c, b·H, Dh]), and at the prefill's
+    # [c, b·H, Dh]; mamba2-1.3b's gated out_norm [c, b, d_inner]), and at
+    # the prefill's
     eps = qwen3_1_7b.CONFIG.norm_eps
     for label, shape in (("decode_hidden", (4, 8, 2048)),
                          ("decode_q_norm", (4, 8 * 16, 128)),
                          ("decode_k_norm", (4, 8 * 8, 128)),
+                         ("decode_inner", (4, 8, 4096)),
                          ("prefill_hidden", (4, 8 * 200, 2048)),
-                         ("prefill_q_norm", (4, 8 * 200 * 16, 128))):
+                         ("prefill_q_norm", (4, 8 * 200 * 16, 128)),
+                         ("prefill_inner", (4, 8 * 200, 4096))):
         for dtype in (torch.bfloat16, torch.float32):
             x = randn(shape, dtype)
             w = 1.0 + 0.1 * randn((shape[0], shape[2]), torch.float32)
@@ -265,167 +492,133 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
             check(ok, f"B7 {shape} {dtype}: error {err}")
 
     # ---- lm_parity: full width, 2 layers, f32; kernel against plain route
-    f32, C, S, P = torch.float32, 4, 8, 200
-    cfg = dataclasses.replace(qwen3_1_7b.CONFIG, n_layers=2)
-    model = init_params(cfg, C, f32, device=dev, generator=gen)
-    prompts = serve_lm.make_prompts(cfg.vocab_size, S, P, seed, dev)
-    toks = prompts[None].expand(C, S, P)
+    parity_phase("lm_parity", dataclasses.replace(qwen3_1_7b.CONFIG,
+                                                  n_layers=2),
+                 seed, dev)
 
-    def decode(n):
-        cache = model.init_cache(S, 256, f32)
-        outs = []
-        for t in range(n):
-            lg, cache = model.decode_step(cache, toks[:, :, t:t + 1],
-                                          compute_dtype=f32)
-            outs.append(lg)
-        return torch.cat(outs, 2)
-
-    fwd = model(toks, compute_dtype=f32)
-    with plain():
-        for mod in kernels:
-            mod.launches = 0
-        fwd_err = float((fwd - model(toks, compute_dtype=f32)).abs().max())
-        plain_launches = sum(mod.launches for mod in kernels)
-    del fwd
-    dec = decode(8)
-    with plain():
-        dec_err = float((dec - decode(8)).abs().max())
-    fused = model(toks, compute_dtype=f32, last_token_only=True)
-    pre_err = float((fused - decode(P)[:, :, -1:]).abs().max())
-    row = {"phase": "lm_parity", "arch": cfg.name, "layers": cfg.n_layers,
-           "dtype": "float32", "chains": C, "slots": S, "prompt_len": P,
-           "forward_max_abs_err": fwd_err, "decode8_max_abs_err": dec_err,
-           "fused_vs_decode_prefill_max_abs_err": pre_err,
-           "tol": LM_PARITY_TOL, "plain_route_launches": plain_launches}
-    emit(row)
-    check(plain_launches == 0, "lm_parity: the plain route launched")
-    check(max(fwd_err, dec_err, pre_err) <= LM_PARITY_TOL,
-          f"lm_parity: {row}")
-    del model, dec, fused
+    # ---- lm_serve: the slice's main path at full width and depth, and
+    # where a decode step's time goes
+    engine, last, step_ms, launches = serve_phase(
+        "lm_serve", "qwen3-1.7b", "simple", seed, dev, smi, event_ms)
+    profile_phase("lm_profile", engine, last, step_ms)
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
+    return rows, {k: launches[k] for k in ("B5", "B7")}
 
-    # ---- lm_serve: the slice's main path at full width and depth
-    bf16, NEW, MAX_LEN = torch.bfloat16, 32, 256
-    model = serve_lm.build_model("qwen3-1.7b", smoke=False, chains=C,
-                                 dtype=bf16, device=dev, seed=seed)
-    cfg = model.cfg
-    prompts = serve_lm.make_prompts(cfg.vocab_size, S, P, seed, dev)
-    toks = prompts[None].expand(C, S, P)
-    engine = ServingEngine(model, batch_slots=S, max_len=MAX_LEN,
-                           gen=GenerationConfig(max_new_tokens=NEW,
-                                                combine="simple"),
-                           compute_dtype=bf16)
-    model(toks[:, :, :8], compute_dtype=bf16, last_token_only=True)  # warm
-    engine.prefill(prompts[:, :4])
-    engine.reset()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for mod in kernels:
-        mod.launches = 0
-    timer = PhaseTimer(dev)
-    t0 = time.perf_counter()
-    out = engine.generate(prompts, timer=timer)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    launches = {"B5": flash_attention.launches, "B7": rmsnorm.launches}
-    peak_bytes = torch.cuda.max_memory_allocated()
-    ms = timer.ms()
-    n_dec = sum(1 for phase, _, _ in timer.spans if phase == "decode")
-    steps = P + n_dec
-    per_step = {"B5": cfg.n_layers, "B7": 4 * cfg.n_layers + 1}
 
-    for mod in kernels:
-        mod.launches = 0
-    fused = model(toks, compute_dtype=bf16, last_token_only=True)
-    torch.cuda.synchronize()
-    fused_launches = {"B5": flash_attention.launches,
-                      "B7": rmsnorm.launches}
-    fused_ms = event_ms(lambda: model(toks, compute_dtype=bf16,
-                                      last_token_only=True), 3)
+def ssd_flops(s, chunk, rows, h, p, n):
+    """float32 operations of the chunk algebra for `rows` (chain, batch
+    row) sequences of s steps and h heads, counting what the data needs.
+    Per chunk of Lc steps and row, the scores C·Bᵀ over the Lc(Lc+1)/2
+    pairs s <= t (2n each; B and C are shared by the heads); per chunk
+    and head, each pair's decay and scale and its product with x over p,
+    the carried state's term Lc·p·(2n + 2) after the first chunk, the
+    state update Lc·p·2n + p·n and the cumulative sum, decays and weights
+    (4·Lc)."""
+    per_row = per_head = 0
+    for k, t0 in enumerate(range(0, s, chunk)):
+        lc = min(chunk, s - t0)
+        pairs = lc * (lc + 1) // 2
+        per_row += pairs * 2 * n
+        per_head += (pairs * (2 * p + 3) + (k > 0) * lc * p * (2 * n + 2)
+                     + lc * p * 2 * n + p * n + 4 * lc)
+    return float(per_row + h * per_head) * rows
 
-    # the first decode step after the prefill, by each route, from one
-    # cache state (the K/V the step writes are put back in between)
-    engine.reset()
-    last = engine.prefill(prompts)
-    saved = [(lc["k"].clone(), lc["v"].clone())
-             for lc in engine.cache["layers"]]
-    logits_k, _ = model.decode_step(engine.cache, last, compute_dtype=bf16)
-    for lc, (k, v) in zip(engine.cache["layers"], saved):
-        lc["k"].copy_(k)
-        lc["v"].copy_(v)
-    with plain():
-        logits_p, _ = model.decode_step(engine.cache, last,
-                                        compute_dtype=bf16)
-    step_err = float((logits_k.float() - logits_p.float()).abs().max())
-    agree_rows = float((logits_k.argmax(-1) == logits_p.argmax(-1))
-                       .float().mean())
-    mixed = [engine._combine(lg, engine.chain_weights).argmax(-1)
-             for lg in (logits_k, logits_p)]
-    agree_slots = float((mixed[0] == mixed[1]).float().mean())
-    finite = bool(logits_k.isfinite().all() and fused.isfinite().all())
-    in_vocab = bool(((out >= 0) & (out < cfg.vocab_size)).all())
-    row = {"phase": "lm_serve", "card": smi, "arch": cfg.name,
-           "layers": cfg.n_layers, "dtype": "bfloat16", "chains": C,
-           "slots": S, "prompt_len": P, "max_len": MAX_LEN,
-           "new_tokens": n_dec, "combine": "simple",
-           "prefill_by_decode_ms": ms["prefill"],
-           "fused_prefill_ms": fused_ms,
-           "decode_ms_per_step": ms["decode"] / n_dec,
-           "tokens_per_s": S * n_dec / (ms["decode"] / 1e3),
-           "generate_wall_s": wall_s,
-           "max_memory_allocated": peak_bytes,
-           "launches": launches, "launches_per_step": {
-               k: v / steps for k, v in launches.items()},
-           "fused_prefill_launches": fused_launches,
-           "first_step_max_abs_logit_diff": step_err,
-           "first_step_argmax_agreement_rows": agree_rows,
-           "first_step_greedy_agreement_slots": agree_slots,
-           "finite_logits": finite, "tokens_in_vocab": in_vocab,
-           "tokens_slot0": out[0].tolist()}
-    emit(row)
-    check(finite, "lm_serve: non-finite logits")
-    check(in_vocab, "lm_serve: tokens outside the vocabulary")
-    check(launches == {k: v * steps for k, v in per_step.items()},
-          f"lm_serve: launches {launches} over {steps} steps")
-    check(fused_launches == per_step,
-          f"lm_serve: fused prefill launches {fused_launches}")
 
-    # ---- where a decode step's time goes: three steps of the engine
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    dev_us = lambda e: getattr(e, "self_device_time_total",  # noqa: E731
-                               getattr(e, "self_cuda_time_total", 0.0))
-    tok = last
-    engine._decode(tok, None)                             # warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            tok, _ = engine._decode(tok, None)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    ops = sorted((e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                 key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in ops) / 1e3
-    # the profiler slows the host: the idle share is taken against
-    # lm_serve's unprofiled step, and against the profiled wall beside it
-    step_ms = ms["decode"] / n_dec
-    emit({"phase": "lm_profile", "steps": 3, "wall_ms": wall_ms,
-          "device_busy_ms": busy_ms, "unprofiled_step_ms": step_ms,
-          "device_idle_share": 1.0 - busy_ms / (3 * step_ms) if ops
-          else None,
-          "device_idle_share_profiled_wall": 1.0 - busy_ms / wall_ms
-          if ops else None,
-          "device_kernels": sum(e.count for e in ops),
-          "top_kernels": [{"name": e.key[:70], "calls": e.count,
-                           "ms": dev_us(e) / 1e3} for e in ops[:10]]})
-    del model, engine, saved
+def b6_phase(dev, gen, event_ms, bound_ms):
+    """Kernel B6 against its plain version (`ref.ref_ssd_chunked`) on
+    identical inputs: mamba2-1.3b's fused prefill (4 chains × 8 slots,
+    200 and 512 steps, 64 heads of 64, N 128) and zamba2-2.7b's (80 heads,
+    N 64), x in bf16 and float32; the reference's small grid, one step,
+    and chunks that do not divide s; against the sequential oracle
+    `ref.ref_ssd` once; and A·dt of about -250 a step, where the masked
+    exponent overflows.  Returns the kernels-line row."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.kernels import ref, ssd_scan
+
+    def inputs(c, b, s, h, p, n, dtype, a_scale=1.0):
+        def rn(*shape):
+            return torch.randn(shape, device=dev, generator=gen)
+        return ((0.5 * rn(c, b, s, h, p)).to(dtype),
+                F.softplus(rn(c, b, s, h)),
+                -a_scale * torch.exp(0.3 * rn(c, h)), 0.5 * rn(c, b, s, n),
+                0.5 * rn(c, b, s, n))
+
+    kernel_row = None
+    for label, c, b, s, h, p, n, chunk, oracle, a_scale in (
+            ("mamba2_prefill_200", 4, 8, 200, 64, 64, 128, 64, False, 1.0),
+            ("mamba2_prefill_512", 4, 8, 512, 64, 64, 128, 64, False, 1.0),
+            ("zamba2_prefill_200", 4, 8, 200, 80, 64, 64, 64, False, 1.0),
+            ("small_64_c16", 2, 1, 64, 2, 8, 8, 16, False, 1.0),
+            ("small_128_c32", 2, 2, 128, 4, 16, 8, 32, False, 1.0),
+            ("small_96_c32", 2, 1, 96, 1, 32, 16, 32, False, 1.0),
+            ("small_50_c16", 2, 1, 50, 2, 8, 8, 16, False, 1.0),
+            ("small_200_c48", 2, 2, 200, 3, 64, 128, 48, False, 1.0),
+            ("one_step", 2, 2, 1, 4, 64, 128, 64, False, 1.0),
+            ("oracle_80", 2, 2, 80, 3, 16, 8, 64, True, 1.0),
+            ("overflow_128", 1, 2, 128, 2, 8, 8, 64, True, 200.0)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dt, A, B, C = inputs(c, b, s, h, p, n, dtype, a_scale)
+            ch = min(chunk, s)
+            out = ssd_scan.ssd_scan_cuda(x, dt, A, B, C, chunk=ch)
+            want = ref.ref_ssd_chunked(x, dt, A, B, C, chunk=ch)
+            tol = B6_TOL[str(dtype)[6:]]
+            err, ok = close_err(out, want, tol)
+            row = {"phase": "B6", "shape": label, "dtype": str(dtype)[6:],
+                   "C": c, "b": b, "s": s, "H": h, "P": p, "N": n,
+                   "chunk": ch, "max_abs_err": err, "tol": tol,
+                   "finite": bool(out.isfinite().all())}
+            if oracle:
+                row["oracle_max_abs_err"], ok_o = close_err(
+                    out, ref.ref_ssd(x, dt, A, B, C), tol)
+                ok = ok and ok_o
+            reps = 5 if s >= 200 else 20
+            row["ms"] = event_ms(lambda: ssd_scan.ssd_scan_cuda(
+                x, dt, A, B, C, chunk=ch), reps)
+            row["plain_ms"] = event_ms(lambda: ref.ref_ssd_chunked(
+                x, dt, A, B, C, chunk=ch), reps)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                [x, dt, A, B, C, out], ssd_flops(s, ch, c * b, h, p, n))
+            # no single PyTorch call computes the SSD scan
+            row["library_ms"] = None
+            emit(row)
+            if label == "mamba2_prefill_200" and dtype == torch.bfloat16:
+                kernel_row = row
+            check(ok and row["finite"], f"B6 {label} {dtype}: {row}")
+    return kernel_row
+
+
+def ssm_phases(seed, dev, smi, event_ms, bound_ms):
+    """The phases of the Mamba-2 serving slice (B6, ssm_parity,
+    hybrid_parity, ssm_serve, ssm_profile).  Returns the B6 row of the
+    kernels line and B6's launches in the ssm_serve run."""
+    import torch
+    from repro_torch.configs import mamba2_1_3b, zamba2_2_7b
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    row = b6_phase(dev, gen, event_ms, bound_ms)
+
+    # ---- full width cut in depth, f32; kernel against plain route: two
+    # 'M' layers, and twelve with two applications of the shared block
+    for phase, cfg, layers, tol in (
+            ("ssm_parity", mamba2_1_3b.CONFIG, 2, LM_PARITY_TOL),
+            ("hybrid_parity", zamba2_2_7b.CONFIG, 12, HYBRID_ROUTE_TOL)):
+        parity_phase(phase, dataclasses.replace(
+            cfg, n_layers=layers, layer_pattern="M" * layers), seed, dev,
+            tol)
+
+    # ---- ssm_serve: the slice's main path at full width and depth, with
+    # Weighted Average (its chain weights run B6), and where a decode
+    # step's time goes
+    engine, last, step_ms, launches = serve_phase(
+        "ssm_serve", "mamba2-1.3b", "weighted", seed, dev, smi, event_ms)
+    profile_phase("ssm_profile", engine, last, step_ms)
+    del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, launches
+    return {"B6": row}, {"B6": launches["B6"]}
 
 
 def main() -> int:
@@ -1023,16 +1216,22 @@ def main() -> int:
                                      bound_ms)
     rows.update(lm_rows)
 
+    # ---- the Mamba-2 serving slice: B6, ssm_parity, hybrid_parity,
+    # ssm_serve, ssm_profile
+    ssm_rows, ssm_launches = ssm_phases(args.seed, dev, smi, event_ms,
+                                        bound_ms)
+    rows.update(ssm_rows)
+
     # each kernel's launches in the run of the path it carries; B4 runs
     # inside every sparse launch of B1–B3, at both settings; B5 and B7 in
-    # lm_serve's generate
+    # lm_serve's generate; B6 in ssm_serve's (its chain weights' forward)
     sparse_runs = [counted["end_to_end_sparse", s][1] for s in (1, 8)]
     launches_of = {
         "B1": counted["end_to_end", 1][0]["B1"],
         "B2": counted["end_to_end", 1][0]["B2"],
         "B3": counted["end_to_end_fused", 8][0]["B3"],
         "B4": sum(sum(run.values()) for run in sparse_runs),
-        **lm_launches}
+        **lm_launches, **ssm_launches}
     sources = {"B1": ("slda_predict_sweeps", "slda_predict.cu",
                       "src/repro/kernels/slda_predict.py:119"),
                "B2": ("slda_gibbs_sweep", "slda_gibbs.cu",
@@ -1043,6 +1242,8 @@ def main() -> int:
                       "src/repro/kernels/sparse.py:53"),
                "B5": ("flash_attention", "flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:26"),
+               "B6": ("ssd_scan", "ssd_scan.cu",
+                      "src/repro/kernels/ssd_scan.py:28"),
                "B7": ("rmsnorm", "rmsnorm.cu",
                       "src/repro/kernels/rmsnorm.py:12")}
     emit({"kernels": [{

@@ -1,18 +1,21 @@
 """Architecture registry of the port: shape tables only, no weights.
 
-The dense, frontend-free, expert-free archs of the reference's registry
-are here.  The others raise `NotImplementedError` naming the ROADMAP
-item that brings them.
+The frontend-free, expert-free archs of the reference's registry are
+here: the dense ones, Mamba-2 and the hybrid.  The others raise
+`NotImplementedError` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
-from . import codeqwen1_5_7b, internlm2_1_8b, qwen2_5_32b, qwen3_1_7b
+from . import (codeqwen1_5_7b, internlm2_1_8b, mamba2_1_3b, qwen2_5_32b,
+               qwen3_1_7b, zamba2_2_7b)
 
 _MODULES = {
     "qwen2.5-32b": qwen2_5_32b,
     "codeqwen1.5-7b": codeqwen1_5_7b,
     "internlm2-1.8b": internlm2_1_8b,
     "qwen3-1.7b": qwen3_1_7b,
+    "mamba2-1.3b": mamba2_1_3b,
+    "zamba2-2.7b": zamba2_2_7b,
 }
 
 ARCHS = {name: m.CONFIG for name, m in _MODULES.items()}
@@ -21,8 +24,6 @@ SMOKES = {name: m.SMOKE for name, m in _MODULES.items()}
 NOT_PORTED = {
     "arctic-480b": "MoE",
     "phi3.5-moe-42b-a6.6b": "MoE",
-    "mamba2-1.3b": "SSM layers (kernel B6)",
-    "zamba2-2.7b": "hybrid SSM layers and the shared attention block",
     "internvl2-2b": "the vision frontend",
     "musicgen-medium": "the audio frontend",
 }

@@ -60,7 +60,8 @@ def _flatten(tree, prefix, out):
 
 def lm_params_from_numpy(tree, cfg, *, device="cuda") -> Transformer:
     """The port's model from the reference's `init_params` tree (numpy
-    leaves, chain axis leading), in the list layout (`layers`) or the
+    leaves, chain axis leading), in the list layout (`layers`, attention
+    and Mamba-2 layers alike, and the hybrid's `shared` block) or the
     stacked one of `scan_layers` (`layers_stacked`, leaves [L, C, ...]),
     which is unstacked.  The weights keep the tree's dtype."""
     dev = resolve_device(device)
@@ -81,6 +82,8 @@ def lm_params_from_numpy(tree, cfg, *, device="cuda") -> Transformer:
         state["lm_head"] = tree["lm_head"]
     for i, lp in enumerate(layers):
         state.update({f"layers.{i}.{k}": a for k, a in lp.items()})
+    if "shared" in tree:                      # the hybrid's shared block
+        _flatten(tree["shared"], "shared", state)
     table = _np_tensor(state["embed"])
     model = Transformer(cfg, table.shape[0], table.dtype, init=Init(dev))
     model.load_state_dict({k: _np_tensor(a) for k, a in state.items()})

@@ -6,6 +6,7 @@
   sparse          — kernel B4: the sparse two-stage draw of B1–B3 (plain
                     version, index build, and the device function alone)
   flash_attention — kernel B5: causal GQA attention, online softmax
+  ssd_scan        — kernel B6: the Mamba-2 SSD chunked scan
   rmsnorm         — kernel B7: RMSNorm with a weight per chain
   ref             — the plain PyTorch versions (the CPU route)
   ops             — the device routing the core and the models call

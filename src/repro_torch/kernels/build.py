@@ -21,7 +21,7 @@ import torch
 from repro_torch.device import check_full_fp32
 
 SOURCES = ("slda_predict.cu", "slda_gibbs.cu", "slda_train.cu",
-           "flash_attention.cu", "rmsnorm.cu")
+           "flash_attention.cu", "ssd_scan.cu", "rmsnorm.cu")
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
          # no FMA contraction: each expression rounds as the plain
          # version's separate tensor operations do; no fast math either

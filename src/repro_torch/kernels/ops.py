@@ -1,8 +1,9 @@
 """The operations the core and the models call, routed by device.
 
 A CUDA tensor goes to the hand-written kernel (`slda_gibbs`,
-`slda_train`, `slda_predict`, `flash_attention`, `rmsnorm`), or the
-kernel raises; a CPU tensor goes to the plain version in `ref`.  There is no other route and no fallback.
+`slda_train`, `slda_predict`, `flash_attention`, `ssd_scan`, `rmsnorm`),
+or the kernel raises; a CPU tensor goes to the plain version in `ref`.
+There is no other route and no fallback.
 The ops are the reference's `chain_axis=True` forms and keep its
 layouts: tables come in as `[M, T, W]` and are transposed to the
 row-gather `[M, W, T]` layout here, inside the op.  With
@@ -18,6 +19,7 @@ import torch
 from . import flash_attention as _flash
 from . import ref, slda_gibbs, slda_predict, slda_train
 from . import rmsnorm as _rmsnorm
+from . import ssd_scan as _ssd_scan
 from .sparse import build_topic_index
 
 
@@ -118,6 +120,24 @@ def attention(q, k, v, *, causal=True, kv_len=None):
         return _flash.flash_attention_cuda(*_dense(q, k, v), causal=causal,
                                            kv_len=kv_len)
     return ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
+
+
+def ssd(x, dt, A, B, C, *, chunk=64):
+    """The Mamba-2 SSD scan over s for every chain at once, the
+    reference's `ops.ssd` with the chain axis its models vmap over: x
+    [C, b, s, h, p]; dt [C, b, s, h]; A [C, h]; B, C [C, b, s, n] (shared
+    by the heads).  Returns y like x.  The chunk is min(chunk, s), as the
+    reference takes it; the kernel needs no padding, and equals the
+    padded form (a padded step has dt = 0 and carries nothing)."""
+    ch = min(chunk, x.shape[2])
+    if _route(x):
+        return _ssd_scan.ssd_scan_cuda(*_dense(x, dt, A, B, C), chunk=ch)
+    return ref.ref_ssd_chunked(x, dt, A, B, C, chunk=ch)
+
+
+# One token of the SSD recurrence: plain tensor code on every device (the
+# reference's `ssd_decode_step`, which warrants no kernel either).
+ssd_decode_step = ref.ssd_decode_step
 
 
 def rmsnorm(x, w, *, eps=1e-6):

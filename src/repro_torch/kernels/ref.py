@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the kernels: the three samplers, attention
-(B5) and RMSNorm (B7).
+(B5), the SSD scan (B6) and RMSNorm (B7).
 
 They are the kernels' semantics written as tensor code: the CPU route of
 `kernels.ops`, and what `chip_smoke.py` holds the CUDA kernels against on
@@ -373,3 +373,84 @@ def ref_rmsnorm(x, w, eps=1e-6):
     if w.ndim == 2:
         w = w.reshape((w.shape[0],) + (1,) * (x.ndim - 2) + (w.shape[-1],))
     return (xf * torch.rsqrt(var + eps) * w).to(x.dtype)
+
+
+# -------------------------------------------------------------------- ssd
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """One token of the SSD recurrence for every chain, the models' decode
+    route on every device (a few elementwise passes over the state: no
+    kernel).  state float32 [C, b, h, p, n]; x_t [C, b, h, p]; dt_t
+    [C, b, h]; A [C, h]; B_t, C_t [C, b, n].  Returns (state',
+    y_t [C, b, h, p])."""
+    decay = torch.exp(A[:, None, :] * dt_t)                      # [C, b, h]
+    upd = (dt_t[..., None] * x_t)[..., None] * B_t[:, :, None, None, :]
+    state = state * decay[..., None, None] + upd
+    return state, torch.einsum("cbhpn,cbn->cbhp", state, C_t)
+
+
+def ref_ssd(x, dt, A, B, C):
+    """The SSD oracle, the reference's sequential scan: the state starts
+    at zero for each (chain, batch row, head), then
+    h_t = exp(A·dt_t)·h_{t-1} + dt_t·x_t ⊗ B_t and y_t = C_t·h_t.
+
+    x [C, b, s, h, p]; dt [C, b, s, h] (> 0); A [C, h] (< 0); B, C
+    [C, b, s, n], shared by the heads.  Computes in float32; returns x's
+    dtype."""
+    Cn, b, s, h, p = x.shape
+    xf, dtf, Af, Bf, Cf = (t.float() for t in (x, dt, A, B, C))
+    state = torch.zeros((Cn, b, h, p, B.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(s):
+        state, y = ssd_decode_step(state, xf[:, :, t], dtf[:, :, t], Af,
+                                   Bf[:, :, t], Cf[:, :, t])
+        ys.append(y)
+    return torch.stack(ys, 2).to(x.dtype)
+
+
+def ref_ssd_chunked(x, dt, A, B, C, *, chunk=64):
+    """Plain B6: the reference's chunk algebra (`ssd_chunked_jnp`, the
+    twin of its Pallas kernel) in float32, s zero-padded to a multiple of
+    `chunk`.  Shapes as `ref_ssd`.  Per chunk of L steps, with cum the
+    running sum of A·dt inside it:
+      y   = ((C Bᵀ) ∘ M) x + exp(cum) ∘ (C h₀ᵀ),
+            M[t, s] = exp(cum_t − cum_s)·dt_s for s ≤ t, else 0;
+      h₁  = h₀·exp(cum_L) + (x ∘ w)ᵀ B,  w_s = exp(cum_L − cum_s)·dt_s.
+    Above the diagonal the exponent is positive and may overflow: M
+    selects 0 there, never multiplies by a mask (inf·0 = NaN)."""
+    Cn, b, s, h, p = x.shape
+    n = B.shape[-1]
+    pad = (-s) % chunk
+    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    if pad:
+        xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
+        dtf, Bf, Cf = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                       for t in (dtf, Bf, Cf))
+    L = chunk
+    nc = (s + pad) // L
+    xc = xf.reshape(Cn, b, nc, L, h, p)
+    dtc = dtf.reshape(Cn, b, nc, L, h)
+    Bc, Cc = (t.reshape(Cn, b, nc, L, n) for t in (Bf, Cf))
+    tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    Af = A.float()[:, None, None, :]                            # [C,1,1,h]
+    state = torch.zeros((Cn, b, h, p, n), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for k in range(nc):
+        xk, dk, bk, ck = xc[:, :, k], dtc[:, :, k], Bc[:, :, k], Cc[:, :, k]
+        cum = (Af * dk).cumsum(2)                               # [C,b,L,h]
+        G = torch.einsum("cbln,cbmn->cblm", ck, bk)
+        Mdec = torch.where(tri[:, :, None],
+                           (cum[:, :, :, None] - cum[:, :, None]).exp(),
+                           0.0)                                 # [C,b,L,L,h]
+        M = Mdec * dk[:, :, None]
+        y = torch.einsum("cblm,cblmh,cbmhp->cblhp", G, M, xk)
+        y = y + cum.exp()[..., None] * torch.einsum(
+            "cbln,cbhpn->cblhp", ck, state)
+        w = (cum[:, :, -1:] - cum).exp() * dk                   # [C,b,L,h]
+        state = state * cum[:, :, -1].exp()[..., None, None] + torch.einsum(
+            "cblhp,cblh,cbln->cbhpn", xk, w, bk)
+        ys.append(y)
+    y = torch.stack(ys, 2).reshape(Cn, b, nc * L, h, p)[:, :, :s]
+    return y.to(x.dtype)

@@ -6,8 +6,9 @@ The per-layer structure is a `layer_pattern` string, one char per layer:
   'A' — attention + (MLP | MoE)   (MoE if n_experts > 0)
   'M' — Mamba-2 mixer block
 `shared_attn_every = k` applies one parameter-shared attention+MLP block
-after every k-th layer (Zamba2).  The port runs the dense 'A' route;
-the models raise `NotImplementedError` for the rest.
+after every k-th layer (Zamba2).  The port runs dense 'A' layers, 'M'
+layers and the shared block; the models raise `NotImplementedError` for
+MoE and the frontends.
 """
 from __future__ import annotations
 

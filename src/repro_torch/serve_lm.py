@@ -1,12 +1,13 @@
-"""Serve a dense LM ensemble with the paper's combination rules at the
-token level, the counterpart of the reference's
-`examples/serve_ensemble.py`.
+"""Serve an LM ensemble with the paper's combination rules at the token
+level, the counterpart of the reference's `examples/serve_ensemble.py`.
 
-n_chains replicas of one architecture (random weights from --seed)
-decode a batch of random prompts greedily; at every step the chains'
-next-token distributions are combined by Simple Average (Eq. 7),
+n_chains replicas of one architecture of the port's registry (dense,
+Mamba-2 such as mamba2-1.3b, or the zamba2-2.7b hybrid; random weights
+from --seed) decode a batch of random prompts greedily; at every step the
+chains' next-token distributions are combined by Simple Average (Eq. 7),
 Weighted Average (Eq. 9, weights the inverse of each chain's mean
-next-token loss on the prompts) or not at all (the first chain).
+next-token loss on the prompts, from one full forward pass over them) or
+not at all (the first chain).
 
     PYTHONPATH=src python -m repro_torch.serve_lm [--arch qwen3-1.7b]
         [--smoke] [--chains 4] [--slots 8] [--prompt-len 200]

@@ -69,14 +69,17 @@ def test_cpu_run_loads_no_jax_and_no_reference_module():
 
 def test_serve_lm_cpu_run_loads_no_jax_and_no_reference_module():
     """`python -m repro_torch.serve_lm --smoke --device cpu`, run in a
-    process of its own, generates and imports nothing of JAX."""
+    process of its own for a dense arch and the SSM hybrid, generates
+    and imports nothing of JAX."""
     prog = textwrap.dedent("""
         import sys
         from repro_torch import serve_lm
-        res = serve_lm.main(["--smoke", "--device", "cpu", "--prompt-len",
-                             "12", "--new-tokens", "3", "--combine",
-                             "weighted"])
-        assert len(res["tokens"]) == 8 and len(res["tokens"][0]) == 3
+        for arch in ("qwen3-1.7b", "zamba2-2.7b"):    # zamba2: SSM + shared
+            res = serve_lm.main(["--arch", arch, "--smoke", "--device",
+                                 "cpu", "--prompt-len", "12",
+                                 "--new-tokens", "3", "--combine",
+                                 "weighted"])
+            assert len(res["tokens"]) == 8 and len(res["tokens"][0]) == 3
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("BAD", bad)

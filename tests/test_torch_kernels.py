@@ -17,7 +17,8 @@ from repro.kernels.slda_predict import (slda_predict_sweeps_chains_jnp,
                                         slda_predict_sweeps_chains_pallas)
 from repro_torch.core.types import counts_from_assignments
 from repro_torch.kernels import (build, flash_attention, ops, ref, rmsnorm,
-                                 slda_gibbs, slda_predict, slda_train, sparse)
+                                 slda_gibbs, slda_predict, slda_train, sparse,
+                                 ssd_scan)
 
 MISMATCH_MAX = 1e-3
 ALPHA, BETA, RHO = 0.1, 0.01, 0.5
@@ -263,6 +264,7 @@ def test_build_targets_hopper_without_fast_math():
     (slda_train, "slda_train", "slda_train_sweeps_launch"),
     (sparse, "slda_predict", "slda_sparse_draw_launch"),
     (flash_attention, "flash_attention", "flash_attention_launch"),
+    (ssd_scan, "ssd_scan", "ssd_scan_launch"),
     (rmsnorm, "rmsnorm", "rmsnorm_launch")])
 
 def test_ctypes_argtypes_match_the_c_launchers(module, stem, fn):

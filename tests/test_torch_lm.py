@@ -99,6 +99,11 @@ def test_unported_archs_raise():
     moe = dataclasses.replace(configs.SMOKES["qwen3-1.7b"], n_experts=4)
     with pytest.raises(NotImplementedError, match="MoE"):
         check_supported(moe)
+    vision = dataclasses.replace(configs.SMOKES["qwen3-1.7b"],
+                                 frontend="vision")
+    with pytest.raises(NotImplementedError, match="vision frontend"):
+        check_supported(vision)
+    check_supported(configs.SMOKES["zamba2-2.7b"])     # SSM + shared block
     with pytest.raises(KeyError):
         configs.get_arch("no-such-arch")
 
