@@ -10,7 +10,9 @@ from the sources in the checkout, and exits non-zero if any phase fails
 Phases, one JSON line each:
 
   env            card, power limit, torch and CUDA versions; TF32 off
-  build          nvcc build of every kernel source, its time and ptxas use
+  build          nvcc build of every kernel source, its time and ptxas use,
+                 and the count of HGMMA (wgmma) instructions in B5's
+                 machine code (there must be some)
   counter_hash   the kernels' counter hash bit-equal to the torch version
   B1 / B2 / B3   each kernel against its plain version at the slice's
                  shapes and at T = 128 (B3 also in log form): draw
@@ -39,19 +41,27 @@ Phases, one JSON line each:
                  share and the kernels that take it (for sparse, also
                  where the topic-index build's kernels rank)
   B5             the attention kernel against its plain version, bf16 and
-                 f32, at qwen3-1.7b's prefill (B 32, Hq 16 / Hkv 8, Dh
-                 128, Sq = Sk = 200 and 512) and decode (Sq 1, Sk 256,
-                 kv_len over 1–256 per row, the tail poisoned), at
+                 f32 (`B5_SHAPES`): qwen3-1.7b's prefill (B 32, Hq 16 /
+                 Hkv 8, Dh 128, Sq = Sk = 200 and 512) and decode (Sq 1,
+                 Sk 256, kv_len over 1–256 per row, the tail poisoned),
                  zamba2-2.7b's shared block (Hq = Hkv = 32, Dh 80; prefill
-                 200 and decode 256) and at small shapes (MQA, Sq < Sk,
-                 non-causal): error, times, SDPA's time (the yardstick),
-                 bound
+                 200 and decode 256), a GQA 4:1 prefill at Dh 64, and
+                 small shapes (MQA, Sq < Sk, non-causal, and a decode whose
+                 kv_len includes 0: that row is NaN in both, and NaN
+                 equals NaN): the variant that ran, error, times (CUDA
+                 events back to back; `device_us` by the profiler;
+                 `host_us` on the host's clock) beside the replaced
+                 kernel's (the cuda_cores variant on the same inputs) and
+                 SDPA's (the yardstick), bound
   B7             the RMSNorm kernel against its plain version at the
                  decode step's shapes ([4, 8, 2048], [4, 8·16, 128],
                  [4, 8·8, 128], mamba2's [4, 8, 4096]) and the prefill's
                  ([4, 8·200, 2048], [4, 8·200·16, 128], [4, 8·200,
-                 4096]), bf16 and f32: error, times, F.rms_norm's time,
-                 bound
+                 4096]), bf16 and f32 (`B7_SHAPES`): variant, error,
+                 `err_f64` and `plain_err_f64` (the kernel's and the plain
+                 version's max error against a float64 RMSNorm of the same
+                 inputs), times as B5's beside the two_pass variant's and
+                 F.rms_norm's, bound
   lm_parity      qwen3-1.7b at full width cut to 2 layers, f32, 4 chains,
                  8 slots: the kernel route against the plain route for
                  forward over a 200-token prompt and for 8 decode steps,
@@ -62,8 +72,10 @@ Phases, one JSON line each:
                  slots, 200-token prompts, 32 greedy tokens, Simple
                  Average, through `ServingEngine.generate`: prefill and
                  decode times, tokens/s, peak memory, the kernels' launch
-                 counts, and on the first decode step the kernel route's
-                 logits against the plain route's
+                 counts (B5's by variant: decode in every step, the
+                 tensor cores in the fused prefill), and on the first
+                 decode step the kernel route's logits against the plain
+                 route's
   lm_profile     three of lm_serve's decode steps under torch.profiler:
                  device busy time, the idle share against lm_serve's
                  unprofiled step, the kernels that take it
@@ -78,7 +90,7 @@ Phases, one JSON line each:
   hybrid_parity  zamba2-2.7b at full width cut to 12 layers (two
                  applications of the shared block), as lm_parity, with
                  each forward's launch counts; zamba2's kernel route
-                 within 0.1 of its plain route (HYBRID_ROUTE_TOL)
+                 within 0.05 of its plain route (HYBRID_ROUTE_TOL)
   ssm_serve      mamba2-1.3b at full width and depth as lm_serve, with
                  Weighted Average: its chain weights from one full forward
                  over the prompts (48 B6 launches), then generate (none),
@@ -94,6 +106,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -128,10 +141,37 @@ B6_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 # comparison but zamba2's kernel route against its plain route: cut to 12
 # layers with random weights, its first positions move by up to 0.083
 # under one float32 rounding of noise on the embeddings, and the route's
-# gap (B7's few ulps a norm; B6 adds none) needs up to 0.056
+# gap (B7's rounding at each norm; B6 adds none) needs up to 0.021
 # (`python -m repro_torch.route_parity`, seeds 0-7, on the H100)
 LM_PARITY_TOL = 2e-3
-HYBRID_ROUTE_TOL = 0.1
+HYBRID_ROUTE_TOL = 0.05
+# B5's rows (label, B, Hq, Hkv, Sq, Sk, Dh, causal, kv_len): kv_len None,
+# "ragged" (1..Sk over the batch rows, the tail poisoned) or "with_zero"
+# (0..Sk, so one row has no valid key and is NaN, the tail poisoned).
+# Dh 128 is qwen3-1.7b's, Dh 80 zamba2-2.7b's shared block's
+B5_SHAPES = (
+    ("prefill_200", 32, 16, 8, 200, 200, 128, True, None),
+    ("prefill_512", 32, 16, 8, 512, 512, 128, True, None),
+    ("decode_256", 32, 16, 8, 1, 256, 128, True, "ragged"),
+    ("prefill_200_dh80", 32, 32, 32, 200, 200, 80, True, None),
+    ("decode_256_dh80", 32, 32, 32, 1, 256, 80, True, "ragged"),
+    ("prefill_200_gqa4_dh64", 8, 16, 4, 200, 200, 64, True, None),
+    ("small_mqa", 2, 8, 1, 96, 96, 32, True, None),
+    ("small_sq_lt_sk", 1, 4, 2, 16, 80, 32, True, None),
+    ("small_noncausal", 1, 2, 2, 32, 64, 16, False, None),
+    ("small_decode_kv0", 3, 4, 2, 1, 64, 64, True, "with_zero"))
+# B7 at the decode step's norm shapes, those of the main paths' launches
+# (norm1, norm2 and final_norm [c, b, D]; q_norm and k_norm [c, b·H,
+# Dh]; mamba2-1.3b's gated out_norm [c, b, d_inner]), and at the
+# prefill's
+B7_SHAPES = (
+    ("decode_hidden", (4, 8, 2048)),
+    ("decode_q_norm", (4, 8 * 16, 128)),
+    ("decode_k_norm", (4, 8 * 8, 128)),
+    ("decode_inner", (4, 8, 4096)),
+    ("prefill_hidden", (4, 8 * 200, 2048)),
+    ("prefill_q_norm", (4, 8 * 200 * 16, 128)),
+    ("prefill_inner", (4, 8 * 200, 4096)))
 
 
 def sparse_draw_ops(t: int, cap: int, stage2_share: float) -> float:
@@ -156,16 +196,67 @@ def check(ok: bool, what: str) -> None:
 
 def close_err(got, want, tol):
     """max |got - want|, and whether every element lies within tol +
-    tol·|want|."""
-    diff = (got.float() - want.float()).abs()
+    tol·|want|; NaN where both are NaN counts as equal."""
+    got, want = got.float(), want.float()
+    both = got.isnan() & want.isnan()
+    diff = (got - want).abs().masked_fill(both, 0.0)
+    scale = want.abs().masked_fill(both, 0.0)
     return (float(diff.max()) if diff.numel() else 0.0,
-            bool((diff <= tol + tol * want.float().abs()).all()))
+            bool((diff <= tol + tol * scale).all()))
+
+
+def device_us(fn, n=10, tries=3):
+    """Device time a call of `fn`, in µs: every kernel it launches, summed
+    by torch.profiler over n calls.  A trace that lost launches (the
+    profiler now and then returns none, or some: a kernel seen a number
+    of times that n does not divide) is taken again, up to `tries`
+    times; None if none is whole."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [(e.count, getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0.0)))
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA]
+        kernels = [(c, t) for c, t in kernels if t > 0]
+        if kernels and all(c % n == 0 for c, _ in kernels):
+            return sum(t for _, t in kernels) / n
+    return None
+
+
+def host_us(fn, n=50):
+    """Wall time a call of `fn` on the host, in µs, launches included and
+    no synchronisation between calls: what a host-bound step pays."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
 
 
 def reset_launches():
+    from repro_torch.kernels import flash_attention
     from repro_torch.route_parity import kernel_modules
     for mod in kernel_modules().values():
         mod.launches = 0
+    for v in flash_attention.variant_launches:
+        flash_attention.variant_launches[v] = 0
+
+
+def read_b5_variants():
+    from repro_torch.kernels import flash_attention
+    return dict(flash_attention.variant_launches)
 
 
 def read_launches():
@@ -238,7 +329,8 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
     kernel route's logits against the plain route's.  Checks finite
     logits, tokens in the vocabulary and every kernel's launches.
     Returns (the engine after its prefill, the token it feeds next, the
-    unprofiled ms per decode step, the served run's launches)."""
+    unprofiled ms per decode step, the served run's launches with
+    "B5_prefill": the fused prefill's tensor-core B5 launches)."""
     import torch
     from repro_torch import serve_lm
     from repro_torch.route_parity import plain_route
@@ -265,6 +357,7 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
         with timer("weights"):
             weights = serve_lm.inverse_loss_weights(model, prompts, bf16)
     weight_launches = read_launches()
+    weight_variants = read_b5_variants()
     engine = ServingEngine(model, batch_slots=S, max_len=MAX_LEN,
                            gen=gen_cfg, chain_weights=weights,
                            compute_dtype=bf16)
@@ -272,6 +365,8 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = read_launches()
+    gen_variants = {k: v - weight_variants[k]
+                    for k, v in read_b5_variants().items()}
     peak_bytes = torch.cuda.max_memory_allocated()
     ms = timer.ms()
     n_dec = sum(1 for name, _, _ in timer.spans if name == "decode")
@@ -283,6 +378,7 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
     fused = model(toks, compute_dtype=bf16, last_token_only=True)
     torch.cuda.synchronize()
     fused_launches = read_launches()
+    fused_variants = read_b5_variants()
     fused_ms = event_ms(lambda: model(toks, compute_dtype=bf16,
                                       last_token_only=True), 3)
 
@@ -299,8 +395,14 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
         logits_p, _ = model.decode_step(engine.cache, last,
                                         compute_dtype=bf16)
     step_err = float((logits_k.float() - logits_p.float()).abs().max())
-    agree_rows = float((logits_k.argmax(-1) == logits_p.argmax(-1))
-                       .float().mean())
+    agree = logits_k.argmax(-1) == logits_p.argmax(-1)
+    agree_rows = float(agree.float().mean())
+    # where the routes' argmax differ, the plain route's lead of its top
+    # logit over the kernel route's pick (a near-tie at bf16 resolution
+    # when it is below the logits' difference)
+    pick = logits_k.argmax(-1, keepdim=True)
+    lead = (logits_p.float().amax(-1) - logits_p.float().gather(
+        -1, pick).squeeze(-1))[~agree]
     mixed = [engine._combine(lg, engine.chain_weights).argmax(-1)
              for lg in (logits_k, logits_p)]
     agree_slots = float((mixed[0] == mixed[1]).float().mean())
@@ -323,8 +425,12 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
            "launches_per_step": {k: v / steps
                                  for k, v in gen_launches.items()},
            "fused_prefill_launches": fused_launches,
+           "b5_variant_launches": gen_variants,
+           "fused_prefill_b5_variant_launches": fused_variants,
            "first_step_max_abs_logit_diff": step_err,
            "first_step_argmax_agreement_rows": agree_rows,
+           "first_step_disagreeing_rows_max_lead":
+               float(lead.max()) if lead.numel() else None,
            "first_step_greedy_agreement_slots": agree_slots,
            "finite_logits": finite, "tokens_in_vocab": in_vocab,
            "tokens_slot0": out[0].tolist()}
@@ -338,7 +444,13 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
           f"{phase}: chain weights' launches {weight_launches}")
     check(fused_launches == per_forward,
           f"{phase}: fused prefill launches {fused_launches}")
-    return engine, last, step_ms, launches
+    # bf16: every decode step's attention on the decode variant, every
+    # fused prefill's on the tensor cores
+    check(gen_variants["decode"] == gen_launches["B5"]
+          and fused_variants["prefill_wgmma"] == fused_launches["B5"],
+          f"{phase}: B5 variants {gen_variants}, fused {fused_variants}")
+    return engine, last, step_ms, {
+        **launches, "B5_prefill": fused_variants["prefill_wgmma"]}
 
 
 def profile_phase(phase, engine, tok, step_ms):
@@ -390,24 +502,20 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
     def randn(shape, dtype):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
 
-    # ---- B5: the kernel against its plain version on identical inputs;
-    # Dh 128 is qwen3-1.7b's, Dh 80 the zamba2-2.7b shared block's
-    for label, B, hq, hkv, sq, sk, dh, causal, ragged in (
-            ("prefill_200", 32, 16, 8, 200, 200, 128, True, False),
-            ("prefill_512", 32, 16, 8, 512, 512, 128, True, False),
-            ("decode_256", 32, 16, 8, 1, 256, 128, True, True),
-            ("prefill_200_dh80", 32, 32, 32, 200, 200, 80, True, False),
-            ("decode_256_dh80", 32, 32, 32, 1, 256, 80, True, True),
-            ("small_mqa", 2, 8, 1, 96, 96, 32, True, False),
-            ("small_sq_lt_sk", 1, 4, 2, 16, 80, 32, True, False),
-            ("small_noncausal", 1, 2, 2, 32, 64, 16, False, False)):
+    # ---- B5: each row's variant against the plain version on identical
+    # inputs; its time beside the kernel it replaced (the cuda_cores
+    # variant, as every call ran before) and SDPA's, by CUDA events (back
+    # to back: at decode sizes the host's issue rate), by the profiler
+    # (device time a launch) and on the host's clock (a call's wall time)
+    for label, B, hq, hkv, sq, sk, dh, causal, lens in B5_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (randn(shape, dtype) for shape in (
                 (B, hq, sq, dh), (B, hkv, sk, dh), (B, hkv, sk, dh)))
             kv_len = None
             lim = torch.full((B, sq), sk, device=dev)
-            if ragged:      # kv_len over 1..Sk, the tail poisoned
-                kv_len = torch.linspace(1, sk, B, device=dev).round().int()
+            if lens:        # kv_len over 1..Sk (or 0..Sk), the tail poisoned
+                kv_len = torch.linspace(0 if lens == "with_zero" else 1, sk,
+                                        B, device=dev).round().int()
                 tail = (torch.arange(sk, device=dev)[None, :]
                         >= kv_len[:, None])[:, None, :, None]
                 k = k.masked_fill(tail, 1e4)
@@ -416,8 +524,13 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
             if causal:
                 lim = torch.minimum(lim, torch.arange(sq, device=dev)
                                     + sk - sq + 1).clamp(min=0)
-            out = flash_attention.flash_attention_cuda(
-                q, k, v, causal=causal, kv_len=kv_len)
+            kind = flash_attention.variant(dtype, sq, dh)
+
+            def kernel(name=None):
+                return flash_attention.flash_attention_cuda(
+                    q, k, v, causal=causal, kv_len=kv_len,
+                    kernel_variant=name)
+            out = kernel()
             want = ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
             err, ok = close_err(out, want, B5_TOL[str(dtype)[6:]])
             if kv_len is None and causal and sq == sk:
@@ -430,8 +543,12 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
                     q, k, v, attn_mask=mask, enable_gqa=True)
             lib_err, _ = close_err(lib(), want, 1.0)
             reps = 5 if sq >= 512 else 20
-            ms = event_ms(lambda: flash_attention.flash_attention_cuda(
-                q, k, v, causal=causal, kv_len=kv_len), reps)
+            ms = event_ms(kernel, reps)
+            dev_us = device_us(kernel)
+            replaced = lambda: kernel("cuda_cores")  # noqa: E731
+            replaced_ms, replaced_dev_us = (
+                (event_ms(replaced, reps), device_us(replaced))
+                if kind != "cuda_cores" else (ms, dev_us))
             plain_ms = event_ms(lambda: ref.ref_attention(
                 q, k, v, causal=causal, kv_len=kv_len), reps)
             library_ms = event_ms(lib, reps)
@@ -442,49 +559,66 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
             b_ms, b_by = bound_ms([q, out], 4 * dh * pairs,
                                   extra_bytes=valid_kv, peak_ops=peak)
             row = {"phase": "B5", "shape": label, "dtype": str(dtype)[6:],
-                   "B": B, "Hq": hq, "Hkv": hkv, "Sq": sq, "Sk": sk,
-                   "Dh": dh, "causal": causal,
+                   "variant": kind, "B": B, "Hq": hq, "Hkv": hkv, "Sq": sq,
+                   "Sk": sk, "Dh": dh, "causal": causal,
                    "kv_len": None if kv_len is None else
                    [int(kv_len.min()), int(kv_len.max())],
                    "max_abs_err": err, "tol": B5_TOL[str(dtype)[6:]],
                    "sdpa_max_abs_err": lib_err, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "replaced_ms": replaced_ms, "plain_ms": plain_ms,
+                   "library_ms": library_ms, "device_us": dev_us,
+                   "replaced_device_us": replaced_dev_us,
+                   "library_device_us": device_us(lib),
+                   "host_us": host_us(kernel), "library_host_us": host_us(lib),
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
-            if label == "decode_256" and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and label == "decode_256":
                 rows["B5"] = row
+            if dtype == torch.bfloat16 and label == "prefill_200":
+                rows["B5_prefill"] = row
             check(ok, f"B5 {label} {dtype}: error {err}")
 
-    # ---- B7 at the decode step's norm shapes, those of the main paths'
-    # launches (norm1, norm2 and final_norm [c, b, D]; q_norm and k_norm
-    # [c, b·H, Dh]; mamba2-1.3b's gated out_norm [c, b, d_inner]), and at
-    # the prefill's
+    # ---- B7 at the decode step's and the prefill's norm shapes: error
+    # against the plain version, and each one's against float64 (C1);
+    # times beside the two-pass form of the kernel it replaced and
+    # F.rms_norm's, as B5's
     eps = qwen3_1_7b.CONFIG.norm_eps
-    for label, shape in (("decode_hidden", (4, 8, 2048)),
-                         ("decode_q_norm", (4, 8 * 16, 128)),
-                         ("decode_k_norm", (4, 8 * 8, 128)),
-                         ("decode_inner", (4, 8, 4096)),
-                         ("prefill_hidden", (4, 8 * 200, 2048)),
-                         ("prefill_q_norm", (4, 8 * 200 * 16, 128)),
-                         ("prefill_inner", (4, 8 * 200, 4096))):
+    for label, shape in B7_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x = randn(shape, dtype)
             w = 1.0 + 0.1 * randn((shape[0], shape[2]), torch.float32)
-            out = rmsnorm.rmsnorm_cuda(x, w, eps=eps)
+            kind = rmsnorm.variant(dtype, shape[2])
+
+            def kernel(name=None):
+                return rmsnorm.rmsnorm_cuda(x, w, eps=eps,
+                                            kernel_variant=name)
+            out = kernel()
             want = ref.ref_rmsnorm(x, w, eps)
             err, ok = close_err(out, want, B7_TOL[str(dtype)[6:]])
+            xd = x.double()
+            exact = xd * torch.rsqrt(xd.square().mean(-1, keepdim=True)
+                                     + eps) * w.double()[:, None]
             # the library call scales every chain by chain 0's weight: the
             # same work, a weight row per chain aside
             w0 = w[0].to(dtype)
-            ms = event_ms(lambda: rmsnorm.rmsnorm_cuda(x, w, eps=eps), 50)
-            plain_ms = event_ms(lambda: ref.ref_rmsnorm(x, w, eps), 20)
-            library_ms = event_ms(lambda: F.rms_norm(
-                x, (shape[2],), w0, eps), 50)
+            lib = lambda: F.rms_norm(x, (shape[2],), w0, eps)  # noqa: E731
+            ms = event_ms(kernel, 50)
             b_ms, b_by = bound_ms([x, w, out], 4 * x.numel())
             row = {"phase": "B7", "label": label, "shape": list(shape),
-                   "dtype": str(dtype)[6:], "max_abs_err": err,
-                   "tol": B7_TOL[str(dtype)[6:]], "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": library_ms,
+                   "dtype": str(dtype)[6:], "variant": kind,
+                   "max_abs_err": err, "tol": B7_TOL[str(dtype)[6:]],
+                   "err_f64": float((out.double() - exact).abs().max()),
+                   "plain_err_f64": float((want.double() - exact)
+                                          .abs().max()),
+                   "ms": ms,
+                   "replaced_ms": event_ms(lambda: kernel("two_pass"), 50),
+                   "replaced_device_us": device_us(lambda: kernel("two_pass")),
+                   "plain_ms": event_ms(lambda: ref.ref_rmsnorm(x, w, eps),
+                                        20),
+                   "library_ms": event_ms(lib, 50),
+                   "device_us": device_us(kernel),
+                   "library_device_us": device_us(lib),
+                   "host_us": host_us(kernel), "library_host_us": host_us(lib),
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             if label == "decode_hidden" and dtype == torch.bfloat16:
@@ -504,7 +638,7 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
     del engine
     gc.collect()
     torch.cuda.empty_cache()
-    return rows, {k: launches[k] for k in ("B5", "B7")}
+    return rows, {k: launches[k] for k in ("B5", "B5_prefill", "B7")}
 
 
 def ssd_flops(s, chunk, rows, h, p, n):
@@ -654,8 +788,17 @@ def main() -> int:
     build.load("slda_predict")
     ptxas = [ln.strip() for ln in build.build_info["log"].splitlines()
              if "registers" in ln or "spill" in ln]
+    # B5's bf16 prefill runs on wgmma: HGMMA in its machine code
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [cuobjdump, "--dump-sass",
+         str(Path(build.build_info["directory"]) / "libflash_attention.so")],
+        capture_output=True, text=True, check=True).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
     emit({"phase": "build", "seconds": build.build_info["seconds"],
-          "directory": build.build_info["directory"], "ptxas": ptxas})
+          "directory": build.build_info["directory"], "ptxas": ptxas,
+          "b5_hgmma_instructions": hgmma})
+    check(hgmma > 0, "B5: no HGMMA instruction in its machine code")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     int32 = dict(dtype=torch.int32, device=dev, generator=gen)
@@ -1223,8 +1366,9 @@ def main() -> int:
     rows.update(ssm_rows)
 
     # each kernel's launches in the run of the path it carries; B4 runs
-    # inside every sparse launch of B1–B3, at both settings; B5 and B7 in
-    # lm_serve's generate; B6 in ssm_serve's (its chain weights' forward)
+    # inside every sparse launch of B1–B3, at both settings; B5 (decode)
+    # and B7 in lm_serve's generate, B5_prefill in its fused prefill; B6 in
+    # ssm_serve's (its chain weights' forward)
     sparse_runs = [counted["end_to_end_sparse", s][1] for s in (1, 8)]
     launches_of = {
         "B1": counted["end_to_end", 1][0]["B1"],
@@ -1242,6 +1386,9 @@ def main() -> int:
                       "src/repro/kernels/sparse.py:53"),
                "B5": ("flash_attention", "flash_attention.cu",
                       "src/repro/kernels/flash_attention.py:26"),
+               "B5_prefill": ("flash_attention_prefill",
+                              "flash_attention.cu",
+                              "src/repro/kernels/flash_attention.py:26"),
                "B6": ("ssd_scan", "ssd_scan.cu",
                       "src/repro/kernels/ssd_scan.py:28"),
                "B7": ("rmsnorm", "rmsnorm.cu",
@@ -1254,7 +1401,8 @@ def main() -> int:
                                    rows[k].get("one_sweep_max_abs_err")),
         "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
         "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k]["bound_by"],
-        "library_ms": rows[k].get("library_ms")}
+        "library_ms": rows[k].get("library_ms"),
+        **({"variant": rows[k]["variant"]} if "variant" in rows[k] else {})}
         for k, (name, src, rep) in sources.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

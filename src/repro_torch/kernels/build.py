@@ -8,6 +8,7 @@ anew.  A failed build raises: there is no fallback to the plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -32,6 +33,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
 
 _libs: dict = {}
+_bound: dict = {}         # (stem, launcher) -> the bound ctypes function
+_SAME_DEVICE = contextlib.nullcontext()
 build_info: dict = {}     # directory, seconds, compiler log of this process
 
 
@@ -98,11 +101,15 @@ def load(stem: str) -> ctypes.CDLL:
 
 
 def bind(stem: str, name: str, argtypes):
-    """A C launcher of library `stem` with its argument types set; every
-    launcher returns cudaGetLastError() as an int."""
-    fn = getattr(load(stem), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    """A C launcher of library `stem` with its argument types set, bound
+    once and cached; every launcher returns cudaGetLastError() as an
+    int."""
+    fn = _bound.get((stem, name))
+    if fn is None:
+        fn = getattr(load(stem), name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _bound[stem, name] = fn
     return fn
 
 
@@ -148,6 +155,18 @@ def topic_index_operands(topic_index, M: int, W: int, T: int,
     return idx.data_ptr(), vmask.data_ptr(), occm.data_ptr(), cap
 
 
+def on_device(device):
+    """A context in which `device` is the current CUDA device (the
+    launchers raise the current device's limits): `torch.cuda.device`,
+    or no context where it is current already."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
+
+
 def stream_of(device) -> int:
-    """The current PyTorch stream of `device`, as the launchers take it."""
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current PyTorch stream of `device`, as the launchers take it
+    (the raw handle, without building a `torch.cuda.Stream` a call)."""
+    index = torch.cuda.current_device() if device.index is None else \
+        device.index
+    return torch._C._cuda_getCurrentRawStream(index)

@@ -149,8 +149,15 @@ def rmsnorm(x, w, *, eps=1e-6):
         raise ValueError(f"rmsnorm: x {tuple(x.shape)} with w "
                          f"{tuple(w.shape)}")
     if _route(x):
-        y = _rmsnorm.rmsnorm_cuda(
-            x.reshape(C, -1, D).contiguous(),
-            w.to(torch.float32).reshape(C, D).contiguous(), eps=eps)
-        return y.reshape(x.shape)
+        # a decode step calls this some hundred times: no operation that
+        # would not change the operands
+        x3 = x.view(C, -1, D) if x.is_contiguous() else \
+            x.reshape(C, -1, D).contiguous()
+        if w.dtype != torch.float32:
+            w = w.float()
+        if w.ndim == 1:
+            w = w.view(1, D)
+        if not w.is_contiguous():
+            w = w.contiguous()
+        return _rmsnorm.rmsnorm_cuda(x3, w, eps=eps).view(x.shape)
     return ref.ref_rmsnorm(x, w, eps)

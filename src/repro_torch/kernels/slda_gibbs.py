@@ -54,7 +54,7 @@ def slda_gibbs_sweep_cuda(tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t,
     if M * D == 0:
         return z_out, ndt_out
     launch = build.bind("slda_gibbs", "slda_gibbs_sweep_launch", _ARGS)
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         rc = launch(*(t.data_ptr() for t in (
             tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, nt, eta,
             z_out, ndt_out)), M, D, N, T, W, float(alpha), float(beta),

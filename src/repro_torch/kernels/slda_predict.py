@@ -51,7 +51,7 @@ def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
     if M * D == 0:
         return ndt_avg, z_out
     launch = build.bind("slda_predict", "slda_predict_sweeps_launch", _ARGS)
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         rc = launch(tokens.data_ptr(), mask.data_ptr(), seeds.data_ptr(),
                     z0.data_ptr(), ndt0.data_ptr(), phi_t.data_ptr(),
                     ndt_avg.data_ptr(), z_out.data_ptr(), M, D, N, T, W,
@@ -74,7 +74,7 @@ def counter_uniform_cuda(seeds, ctrs):
     out = torch.empty(n, dtype=torch.float32, device=seeds.device)
     launch = build.bind("slda_predict", "slda_counter_uniform_launch",
                         [_P, _P, _P, _I, _P])
-    with torch.cuda.device(seeds.device):
+    with build.on_device(seeds.device):
         rc = launch(seeds.data_ptr(), ctrs.data_ptr(), out.data_ptr(), n,
                     build.stream_of(seeds.device))
     build.check_launch("slda_predict", rc)

@@ -66,7 +66,7 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
                         device=dev) if fused else None
     ptr = lambda t: 0 if t is None else t.data_ptr()
     launch = build.bind("slda_train", "slda_train_sweeps_launch", _ARGS)
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         rc = launch(*(ptr(t) for t in (
             tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta,
             z_out, ndt_out, z_buf, local)), M, D, N, T, W, int(doc_block),

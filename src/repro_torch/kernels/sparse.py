@@ -119,7 +119,7 @@ def sparse_two_stage_draw_cuda(p, u, idx, vmask, occm):
     if R == 0:
         return z
     launch = build.bind("slda_predict", "slda_sparse_draw_launch", _ARGS)
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         rc = launch(*(t.data_ptr() for t in (p, u, idx, vmask, occm, z)),
                     R, T, cap, build.stream_of(dev))
     build.check_launch("slda_predict", rc)

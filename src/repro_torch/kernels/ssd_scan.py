@@ -49,7 +49,7 @@ def ssd_scan_cuda(x, dt, A, B, C, *, chunk=64):
     if out.numel() == 0:
         return out
     launch = build.bind("ssd_scan", "ssd_scan_launch", _ARGS)
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         rc = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
                     C.data_ptr(), out.data_ptr(), Cn, b, s, h, p, n, chunk,
                     int(x.dtype == torch.bfloat16), build.stream_of(dev))

@@ -4,8 +4,14 @@ The same numpy-made inputs go to both packages; the reference's Pallas
 kernels run in interpret mode under `jax.jit`, as `tests/test_kernels.py`
 runs them.  Tolerances (numpy's allclose, atol = rtol): float32 2e-6
 (summation order), bf16 2e-2 (one rounding of the output); RMSNorm
-float32 1e-5.
+float32 1e-5.  The kernels' variant choice, and a numerics model of the
+bf16 tensor-core variant, are held here too: the kernels themselves run
+only on the card (`chip_smoke.py`).
 """
+import ctypes
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -15,7 +21,8 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models import layers as jlayers
-from repro_torch.kernels import flash_attention, ops, rmsnorm
+from repro_torch.configs import ARCHS
+from repro_torch.kernels import build, flash_attention, ops, ref, rmsnorm
 from repro_torch.models import layers
 
 TOL = {"float32": 2e-6, "bfloat16": 2e-2}
@@ -50,6 +57,19 @@ def _close(got, want, tol):
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
                                atol=tol, rtol=tol)
+
+
+def _chip_smoke():
+    """`chip_smoke.py` as a module: its shape tables and gates (its import
+    loads no torch and touches no card)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+SMOKE = _chip_smoke()
 
 
 # ---------------------------------------------------------------- attention
@@ -162,3 +182,171 @@ def test_rmsnorm_refuses_a_weight_of_another_shape(x_shape, w_shape):
     kernel's [C, -1, D] view would give rows another chain's weight."""
     with pytest.raises(ValueError, match="rmsnorm"):
         ops.rmsnorm(torch.zeros(x_shape), torch.ones(w_shape))
+
+
+# ------------------------------------------------------- kernel variants
+
+# the variant of each B5 row of chip_smoke.py in bf16 and in float32
+SMOKE_B5_VARIANTS = {
+    "prefill_200": ("prefill_wgmma", "cuda_cores"),
+    "prefill_512": ("prefill_wgmma", "cuda_cores"),
+    "decode_256": ("decode", "decode"),
+    "prefill_200_dh80": ("prefill_wgmma", "cuda_cores"),
+    "decode_256_dh80": ("decode", "decode"),
+    "prefill_200_gqa4_dh64": ("prefill_wgmma", "cuda_cores"),
+    "small_mqa": ("prefill_wgmma", "cuda_cores"),
+    "small_sq_lt_sk": ("prefill_wgmma", "cuda_cores"),
+    "small_noncausal": ("prefill_wgmma", "cuda_cores"),
+    "small_decode_kv0": ("decode", "decode"),
+}
+
+
+@pytest.mark.parametrize("row", SMOKE.B5_SHAPES, ids=lambda r: r[0])
+def test_attention_variant_of_each_chip_smoke_shape(row):
+    label, _, _, _, sq, _, dh = row[:7]
+    want = SMOKE_B5_VARIANTS[label]
+    got = tuple(flash_attention.variant(d, sq, dh)
+                for d in (torch.bfloat16, torch.float32))
+    assert got == want
+
+
+@pytest.mark.parametrize("arch", sorted(
+    a for a, c in ARCHS.items() if "A" in c.pattern or c.shared_attn_every))
+def test_attention_variant_of_each_served_shape(arch):
+    """Every served model's bf16 prefill runs on the tensor cores and its
+    decode steps on the decode variant; float32 (the parity route) stays
+    on the CUDA cores at prefill."""
+    hd = ARCHS[arch].hd
+    assert flash_attention.variant(torch.bfloat16, 200, hd) == \
+        "prefill_wgmma"
+    assert flash_attention.variant(torch.float32, 200, hd) == "cuda_cores"
+    for dtype in (torch.bfloat16, torch.float32):
+        assert flash_attention.variant(dtype, 1, hd) == "decode"
+
+
+@pytest.mark.parametrize("label,shape", SMOKE.B7_SHAPES)
+def test_rmsnorm_variant_of_each_chip_smoke_shape(label, shape):
+    for dtype in (torch.bfloat16, torch.float32):
+        assert rmsnorm.variant(dtype, shape[-1]) == "rows_in_registers"
+
+
+@pytest.mark.parametrize("dtype,d,want", [
+    (torch.bfloat16, 8, "rows_in_registers"),
+    (torch.bfloat16, 16384, "rows_in_registers"),
+    (torch.bfloat16, 16392, "two_pass"),     # more than 2,048 pieces
+    (torch.bfloat16, 100, "two_pass"),       # not whole 16-byte pieces
+    (torch.float32, 8192, "rows_in_registers"),
+    (torch.float32, 8196, "two_pass"),
+    (torch.float32, 6, "two_pass")])
+def test_rmsnorm_variant_edges(dtype, d, want):
+    assert rmsnorm.variant(dtype, d) == want
+
+
+def test_wrappers_refuse_what_their_variant_cannot_read():
+    """A variant that does not fit the operands, named or by alignment,
+    raises before anything is built."""
+    flat = torch.zeros(1 + 2 * 64 * 8, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 2, 64, 8)           # 2 bytes off 16
+    k = torch.zeros((1, 2, 64, 8), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention.flash_attention_cuda(q, k, k)
+    x = torch.zeros((1, 2, 64, 8))
+    with pytest.raises(ValueError, match="no prefill_wgmma variant"):
+        flash_attention.flash_attention_cuda(x, x, x,
+                                             kernel_variant="prefill_wgmma")
+    with pytest.raises(ValueError, match="no rows_in_registers variant"):
+        rmsnorm.rmsnorm_cuda(torch.zeros((1, 2, 6)), torch.ones((1, 6)),
+                             kernel_variant="rows_in_registers")
+    xs = torch.zeros(1 + 2 * 8, dtype=torch.bfloat16)[1:].view(1, 2, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        rmsnorm.rmsnorm_cuda(xs, torch.ones((1, 8)))
+
+
+def test_bind_binds_each_launcher_once(monkeypatch):
+    """`build.bind` hands back the same bound function on every call, its
+    argument types set once: a launch pays no rebinding."""
+    libc = ctypes.CDLL(None)
+    loads = []
+    monkeypatch.setattr(build, "_bound", {})
+    monkeypatch.setattr(build, "load",
+                        lambda stem: loads.append(stem) or libc)
+    first = build.bind("libc", "abs", [ctypes.c_int])
+    again = build.bind("libc", "abs", [ctypes.c_int])
+    assert again is first and loads == ["libc"]
+    assert first.argtypes == [ctypes.c_int] and first.restype is ctypes.c_int
+    assert first(-3) == 3
+
+
+def test_ops_rmsnorm_hands_the_kernel_its_operands_uncopied(monkeypatch):
+    """On the kernel route a contiguous x reaches the wrapper as a view of
+    its own storage and a float32 contiguous w as itself; other operands
+    are made so.  The result is the plain version's."""
+    seen = []
+
+    def fake(x, w, *, eps):
+        seen.append((x, w))
+        return ref.ref_rmsnorm(x, w, eps)
+    monkeypatch.setattr(ops, "_route", lambda t: True)
+    monkeypatch.setattr(ops._rmsnorm, "rmsnorm_cuda", fake)
+    x = torch.randn(2, 3, 5, 16)
+    w = torch.randn(2, 16)
+    got = ops.rmsnorm(x, w, eps=1e-6)
+    (kx, kw), = seen
+    assert kx.data_ptr() == x.data_ptr() and kx.shape == (2, 15, 16)
+    assert kw is w
+    torch.testing.assert_close(got, ref.ref_rmsnorm(x, w, 1e-6))
+    ops.rmsnorm(x.transpose(1, 2), w.double().t().contiguous().t(), eps=1e-6)
+    kx, kw = seen[-1]
+    assert kx.is_contiguous() and kw.dtype == torch.float32 and \
+        kw.is_contiguous()
+    ops.rmsnorm(x[0], w[0], eps=1e-6)        # one weight for every row
+    assert seen[-1][1].shape == (1, 16)
+
+
+# ------------------------------------------ the bf16 tensor-core numerics
+
+def _attention_p_rounded(q, k, v, *, causal=True, split=False):
+    """`ref.ref_attention`'s attention with the prefill_wgmma variant's
+    rounding: P = exp(S - max) enters P·V in bf16 (with `split`, as a bf16
+    hi plus the bf16 of the residual), the normaliser sums P in float32.
+    float32 out, unrounded."""
+    B, Hq, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    k = k.float().repeat_interleave(Hq // Hkv, dim=1)
+    v = v.float().repeat_interleave(Hq // Hkv, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k) * Dh ** -0.5
+    if causal and Sq > 1:
+        qi = torch.arange(Sq)[:, None] + (Sk - Sq)
+        s = s.masked_fill(torch.arange(Sk)[None, :] > qi, float("-inf"))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    hi = p.bfloat16().float()
+    out = torch.einsum("bhqk,bhkd->bhqd", hi, v)
+    if split:
+        out = out + torch.einsum("bhqk,bhkd->bhqd",
+                                 (p - hi).bfloat16().float(), v)
+    return out / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,dh", [
+    (1, 16, 8, 200, 200, 128),   # lm_parity's qwen3-1.7b, one batch row
+    (1, 32, 32, 200, 200, 80),   # zamba2-2.7b's shared block
+    (1, 16, 4, 200, 200, 64),    # GQA 4:1
+    (2, 8, 1, 96, 96, 32),       # chip_smoke.py's small shapes
+    (1, 4, 2, 16, 80, 32),
+    (1, 2, 2, 32, 64, 16),
+])
+def test_bf16_probabilities_hold_the_gates(b, hq, hkv, sq, sk, dh):
+    """Rounding P to bf16 before P·V keeps the output within B5's bf16
+    gate of the reference's oracle; splitting P into bf16 hi and lo keeps
+    it within the float32 gate (chip_smoke.B5_TOL)."""
+    causal = (sq, sk) != (32, 64)
+    (jq, jk, jv), (tq, tk, tv) = _both(_normal(
+        9, (b, hq, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh)), "bfloat16")
+    oracle = jax.jit(lambda q, k, v: jref.ref_attention(
+        q, k, v, causal=causal))
+    got = _attention_p_rounded(tq, tk, tv, causal=causal)
+    _close(got.bfloat16(), oracle(jq, jk, jv),
+           SMOKE.B5_TOL["bfloat16"])
+    exact = oracle(*(x.astype(jnp.float32) for x in (jq, jk, jv)))
+    split = _attention_p_rounded(tq, tk, tv, causal=causal, split=True)
+    _close(split, exact, SMOKE.B5_TOL["float32"])
