@@ -12,11 +12,17 @@ Phases, one JSON line each:
   env            card, power limit, torch and CUDA versions; TF32 off
   build          nvcc build of every kernel source, its time and ptxas use,
                  and the count of HGMMA (wgmma) instructions in B5's
-                 machine code (there must be some)
+                 machine code and of HMMA or HGMMA in B6's (there must be
+                 some)
   counter_hash   the kernels' counter hash bit-equal to the torch version
   B1 / B2 / B3   each kernel against its plain version at the slice's
                  shapes and at T = 128 (B3 also in log form): draw
-                 mismatch over real tokens, exact counts, times, bound
+                 mismatch over real tokens, exact counts, times, bound;
+                 B3 runs its cluster variant and, on the same inputs, the
+                 block variant it replaced (`replaced_ms`; their draws
+                 must be equal), with the cluster size and the critical
+                 path (real tokens of the longest walk × sweeps, and ns a
+                 step) of both
   B1_sparse / B2_sparse / B3_sparse
                  each kernel's sparse-draw instantiation (kernel B4
                  inside it) against its plain version, at the slice's
@@ -24,7 +30,8 @@ Phases, one JSON line each:
                  and at T = 128 with cap 32: draw mismatch, exact counts,
                  the share of real tokens that took stage 2 (from the
                  plain version), the sparse and the dense kernel's times
-                 on the same inputs, plain time, bound
+                 on the same inputs, plain time, bound (B3_sparse also as
+                 B3: the replaced kernel, cluster, critical path)
   B4             the sparse draw's device function alone against its
                  plain version, on the rows of one training sweep
   small_shapes   B1, B2 and B3, dense and sparse, against their plain
@@ -33,13 +40,15 @@ Phases, one JSON line each:
   end_to_end     the paper's four algorithms at the slice's configuration
                  (`repro_torch.fig6_mdna`) through their entry points,
                  with the kernels' launch counts over that run
-  end_to_end_fused  the same at sweeps_per_launch = 8 (kernel B3)
+  end_to_end_fused  the same at sweeps_per_launch = 8 (kernel B3, every
+                 launch on its cluster variant, counted by variant)
   end_to_end_sparse  the same with sampler_mode="sparse", at
                  sweeps_per_launch 1 and 8: every launch a sparse one
   profile        one Simple Average run under torch.profiler, at each of
                  the two settings and sparse at 8: device busy time, idle
-                 share and the kernels that take it (for sparse, also
-                 where the topic-index build's kernels rank)
+                 share, B3's share of the busy time and the kernels that
+                 take it (for sparse, also where the topic-index build's
+                 kernels rank)
   B5             the attention kernel against its plain version, bf16 and
                  f32 (`B5_SHAPES`): qwen3-1.7b's prefill (B 32, Hq 16 /
                  Hkv 8, Dh 128, Sq = Sk = 200 and 512) and decode (Sq 1,
@@ -49,7 +58,8 @@ Phases, one JSON line each:
                  small shapes (MQA, Sq < Sk, non-causal, and a decode whose
                  kv_len includes 0: that row is NaN in both, and NaN
                  equals NaN): the variant that ran, error, times (CUDA
-                 events back to back; `device_us` by the profiler;
+                 events back to back; `device_us` by the profiler, with
+                 `device_us_kept` the calls its trace kept of 10;
                  `host_us` on the host's clock) beside the replaced
                  kernel's (the cuda_cores variant on the same inputs) and
                  SDPA's (the yardstick), bound
@@ -80,12 +90,18 @@ Phases, one JSON line each:
                  device busy time, the idle share against lm_serve's
                  unprofiled step, the kernels that take it
   B6             the SSD scan kernel against its plain version, bf16 and
-                 f32, at mamba2-1.3b's fused prefill (C 4, b 8, s 200 and
-                 512, H 64, P 64, N 128), zamba2-2.7b's (H 80, N 64), the
-                 reference's small grid, one step, chunks that do not
-                 divide s, against the sequential oracle, and where the
-                 masked exponent overflows: error, finiteness, times,
-                 bound (no PyTorch call computes it)
+                 f32 (`B6_SHAPES`), at mamba2-1.3b's fused prefill (C 4,
+                 b 8, s 200 and 512, H 64, P 64, N 128), zamba2-2.7b's (H
+                 80, N 64), the reference's small grid, one step, chunks
+                 that do not divide s, against the sequential oracle, and
+                 where the masked exponent overflows: the variant that ran
+                 (`ssd_scan.variant`: tensor_cores for bf16), error,
+                 `err_f64` and `plain_err_f64` (against a float64 scan of
+                 the same inputs), finiteness, times beside the replaced
+                 kernel's (the cuda_cores variant on the same inputs), the
+                 CUDA cores' bound (`f32_bound_ms`) and the tensor
+                 cores' (`tc_bound_ms`), `bound_ms` the one of the
+                 variant that ran; no PyTorch call computes it
   ssm_parity     mamba2-1.3b at full width cut to 2 layers, and
   hybrid_parity  zamba2-2.7b at full width cut to 12 layers (two
                  applications of the shared block), as lm_parity, with
@@ -94,7 +110,8 @@ Phases, one JSON line each:
   ssm_serve      mamba2-1.3b at full width and depth as lm_serve, with
                  Weighted Average: its chain weights from one full forward
                  over the prompts (48 B6 launches), then generate (none),
-                 then the fused prefill (48)
+                 then the fused prefill (48, every one on the tensor
+                 cores)
   ssm_profile    three of ssm_serve's decode steps, as lm_profile
 
 then the kernels line, the card line from nvidia-smi, and last
@@ -173,6 +190,24 @@ B7_SHAPES = (
     ("prefill_q_norm", (4, 8 * 200 * 16, 128)),
     ("prefill_inner", (4, 8 * 200, 4096)))
 
+# B6's rows (label, C, b, s, H, P, N, chunk, against the oracle too, A·dt
+# scale): mamba2-1.3b's fused prefill (4 chains × 8 slots, 200 and 512
+# steps, 64 heads of 64, N 128) and zamba2-2.7b's (80 heads, N 64); the
+# reference's small grid, chunks that do not divide s, one step; the
+# sequential oracle; A·dt of about -250 a step, where the masked exponent
+# overflows
+B6_SHAPES = (
+    ("mamba2_prefill_200", 4, 8, 200, 64, 64, 128, 64, False, 1.0),
+    ("mamba2_prefill_512", 4, 8, 512, 64, 64, 128, 64, False, 1.0),
+    ("zamba2_prefill_200", 4, 8, 200, 80, 64, 64, 64, False, 1.0),
+    ("small_64_c16", 2, 1, 64, 2, 8, 8, 16, False, 1.0),
+    ("small_128_c32", 2, 2, 128, 4, 16, 8, 32, False, 1.0),
+    ("small_96_c32", 2, 1, 96, 1, 32, 16, 32, False, 1.0),
+    ("small_50_c16", 2, 1, 50, 2, 8, 8, 16, False, 1.0),
+    ("small_200_c48", 2, 2, 200, 3, 64, 128, 48, False, 1.0),
+    ("one_step", 2, 2, 1, 4, 64, 128, 64, False, 1.0),
+    ("oracle_80", 2, 2, 80, 3, 16, 8, 64, True, 1.0),
+    ("overflow_128", 1, 2, 128, 2, 8, 8, 64, True, 200.0))
 
 def sparse_draw_ops(t: int, cap: int, stage2_share: float) -> float:
     """float32 operations of one sparse two-stage draw: the gather-scale,
@@ -183,6 +218,52 @@ def sparse_draw_ops(t: int, cap: int, stage2_share: float) -> float:
     blk = min(16, t)
     nb = -(-t // blk)
     return 3 * cap + 3 * t + 2 * nb + stage2_share * (blk + 2)
+
+
+def longest_walk(real_per_doc, walks) -> float:
+    """Real tokens of the longest walk, over the chains: the dependent
+    token steps of one sweep on B3's critical path."""
+    import torch
+    idx = walks.clamp(min=0).to(real_per_doc.device)
+    tok = real_per_doc[:, idx] * (walks >= 0).to(real_per_doc.device)
+    return float(tok.sum(-1).max())
+
+
+def variant_of(counts, call):
+    """What `call` returns, and the one variant whose count in `counts` (a
+    wrapper's `variant_launches`) its launch raised."""
+    before = dict(counts)
+    out = call()
+    ran = [v for v in counts if counts[v] != before[v]]
+    check(len(ran) == 1, f"variants launched: {ran}")
+    return out, ran[0]
+
+
+def replaced_agrees(got, replaced, mask) -> bool:
+    """B3's cluster variant drew what the block variant draws: every real
+    token's topic and every count equal."""
+    import torch
+    (z, ndt), (z_r, ndt_r) = got, replaced
+    return bool(((z == z_r) | (mask <= 0)).all() and torch.equal(ndt, ndt_r))
+
+
+def critical_path(mask, D, doc_block, T, sweeps, ms, replaced_ms,
+                  sparse=False):
+    """B3's critical path on these inputs (mask [M, D, N]), for the
+    cluster variant and the block variant it replaced: the dependent token
+    steps of the longest walk times the sweeps, and the launch's time a
+    step in ns."""
+    from repro_torch.kernels import slda_train
+    real = mask.sum(-1)
+    out = {"cluster": slda_train.slot_plan(D, doc_block, T,
+                                           sparse=sparse)[0]}
+    for key, variant, t_ms in (("", "cluster", ms),
+                               ("replaced_", "block", replaced_ms)):
+        steps = longest_walk(real, slda_train.walks(
+            D, doc_block, T, variant, sparse=sparse)) * sweeps
+        out[f"{key}critical_path_steps"] = steps
+        out[f"{key}ns_per_step"] = t_ms * 1e6 / steps
+    return out
 
 
 def emit(obj) -> None:
@@ -206,11 +287,14 @@ def close_err(got, want, tol):
 
 
 def device_us(fn, n=10, tries=3):
-    """Device time a call of `fn`, in µs: every kernel it launches, summed
-    by torch.profiler over n calls.  A trace that lost launches (the
+    """Device time a call of `fn`, in µs, and the calls of the trace it
+    comes from ("kept/n"): every kernel it launches, summed by
+    torch.profiler over n calls.  A trace that lost launches (the
     profiler now and then returns none, or some: a kernel seen a number
     of times that n does not divide) is taken again, up to `tries`
-    times; None if none is whole."""
+    times.  If none is whole and `fn` launches one kernel, whose last
+    trace kept at least half its launches, the mean of those it kept (B6's
+    traces keep 8 of 10 at times); else (None, None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -227,8 +311,16 @@ def device_us(fn, n=10, tries=3):
                    if e.device_type == DeviceType.CUDA]
         kernels = [(c, t) for c, t in kernels if t > 0]
         if kernels and all(c % n == 0 for c, _ in kernels):
-            return sum(t for _, t in kernels) / n
-    return None
+            return sum(t for _, t in kernels) / n, f"{n}/{n}"
+    if len(kernels) == 1 and 2 * kernels[0][0] >= n:
+        return kernels[0][1] / kernels[0][0], f"{kernels[0][0]}/{n}"
+    return None, None
+
+
+def device_fields(key, fn):
+    """{key: device_us(fn), key_kept: the calls its trace kept}."""
+    us, kept = device_us(fn)
+    return {key: us, f"{key}_kept": kept}
 
 
 def host_us(fn, n=50):
@@ -246,17 +338,24 @@ def host_us(fn, n=50):
 
 
 def reset_launches():
-    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import flash_attention, slda_train, ssd_scan
     from repro_torch.route_parity import kernel_modules
     for mod in kernel_modules().values():
         mod.launches = 0
-    for v in flash_attention.variant_launches:
-        flash_attention.variant_launches[v] = 0
+    for counts in (flash_attention.variant_launches,
+                   ssd_scan.variant_launches, slda_train.variant_launches):
+        for v in counts:
+            counts[v] = 0
 
 
 def read_b5_variants():
     from repro_torch.kernels import flash_attention
     return dict(flash_attention.variant_launches)
+
+
+def read_b6_variants():
+    from repro_torch.kernels import ssd_scan
+    return dict(ssd_scan.variant_launches)
 
 
 def read_launches():
@@ -379,6 +478,7 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
     torch.cuda.synchronize()
     fused_launches = read_launches()
     fused_variants = read_b5_variants()
+    fused_b6_variants = read_b6_variants()
     fused_ms = event_ms(lambda: model(toks, compute_dtype=bf16,
                                       last_token_only=True), 3)
 
@@ -427,6 +527,7 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
            "fused_prefill_launches": fused_launches,
            "b5_variant_launches": gen_variants,
            "fused_prefill_b5_variant_launches": fused_variants,
+           "fused_prefill_b6_variant_launches": fused_b6_variants,
            "first_step_max_abs_logit_diff": step_err,
            "first_step_argmax_agreement_rows": agree_rows,
            "first_step_disagreeing_rows_max_lead":
@@ -449,6 +550,9 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
     check(gen_variants["decode"] == gen_launches["B5"]
           and fused_variants["prefill_wgmma"] == fused_launches["B5"],
           f"{phase}: B5 variants {gen_variants}, fused {fused_variants}")
+    # and every bf16 fused prefill's scan on the tensor cores
+    check(fused_b6_variants["tensor_cores"] == fused_launches["B6"],
+          f"{phase}: B6 variants {fused_b6_variants}")
     return engine, last, step_ms, {
         **launches, "B5_prefill": fused_variants["prefill_wgmma"]}
 
@@ -544,11 +648,13 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
             lib_err, _ = close_err(lib(), want, 1.0)
             reps = 5 if sq >= 512 else 20
             ms = event_ms(kernel, reps)
-            dev_us = device_us(kernel)
+            dev_us = device_fields("device_us", kernel)
             replaced = lambda: kernel("cuda_cores")  # noqa: E731
             replaced_ms, replaced_dev_us = (
-                (event_ms(replaced, reps), device_us(replaced))
-                if kind != "cuda_cores" else (ms, dev_us))
+                (event_ms(replaced, reps),
+                 device_fields("replaced_device_us", replaced))
+                if kind != "cuda_cores" else
+                (ms, {f"replaced_{k}": v for k, v in dev_us.items()}))
             plain_ms = event_ms(lambda: ref.ref_attention(
                 q, k, v, causal=causal, kv_len=kv_len), reps)
             library_ms = event_ms(lib, reps)
@@ -566,9 +672,8 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
                    "max_abs_err": err, "tol": B5_TOL[str(dtype)[6:]],
                    "sdpa_max_abs_err": lib_err, "ms": ms,
                    "replaced_ms": replaced_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, "device_us": dev_us,
-                   "replaced_device_us": replaced_dev_us,
-                   "library_device_us": device_us(lib),
+                   "library_ms": library_ms, **dev_us, **replaced_dev_us,
+                   **device_fields("library_device_us", lib),
                    "host_us": host_us(kernel), "library_host_us": host_us(lib),
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
@@ -612,12 +717,13 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
                                           .abs().max()),
                    "ms": ms,
                    "replaced_ms": event_ms(lambda: kernel("two_pass"), 50),
-                   "replaced_device_us": device_us(lambda: kernel("two_pass")),
+                   **device_fields("replaced_device_us",
+                                   lambda: kernel("two_pass")),
                    "plain_ms": event_ms(lambda: ref.ref_rmsnorm(x, w, eps),
                                         20),
                    "library_ms": event_ms(lib, 50),
-                   "device_us": device_us(kernel),
-                   "library_device_us": device_us(lib),
+                   **device_fields("device_us", kernel),
+                   **device_fields("library_device_us", lib),
                    "host_us": host_us(kernel), "library_host_us": host_us(lib),
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
@@ -662,12 +768,13 @@ def ssd_flops(s, chunk, rows, h, p, n):
 
 def b6_phase(dev, gen, event_ms, bound_ms):
     """Kernel B6 against its plain version (`ref.ref_ssd_chunked`) on
-    identical inputs: mamba2-1.3b's fused prefill (4 chains × 8 slots,
-    200 and 512 steps, 64 heads of 64, N 128) and zamba2-2.7b's (80 heads,
-    N 64), x in bf16 and float32; the reference's small grid, one step,
-    and chunks that do not divide s; against the sequential oracle
-    `ref.ref_ssd` once; and A·dt of about -250 a step, where the masked
-    exponent overflows.  Returns the kernels-line row."""
+    identical inputs at `B6_SHAPES`, x in bf16 and float32: error, and the
+    kernel's and the plain version's errors against a float64 scan of the
+    same inputs; the variant that ran; times (CUDA events, and
+    `device_us` by the profiler) beside the replaced kernel's (the
+    cuda_cores variant on the same inputs); the CUDA cores' bound
+    (`f32_bound_ms`) and the tensor cores' (`tc_bound_ms`), and as
+    `bound_ms` the one of the variant that ran.  Returns the kernels-line row."""
     import torch
     from torch.nn import functional as F
     from repro_torch.kernels import ref, ssd_scan
@@ -681,40 +788,59 @@ def b6_phase(dev, gen, event_ms, bound_ms):
                 0.5 * rn(c, b, s, n))
 
     kernel_row = None
-    for label, c, b, s, h, p, n, chunk, oracle, a_scale in (
-            ("mamba2_prefill_200", 4, 8, 200, 64, 64, 128, 64, False, 1.0),
-            ("mamba2_prefill_512", 4, 8, 512, 64, 64, 128, 64, False, 1.0),
-            ("zamba2_prefill_200", 4, 8, 200, 80, 64, 64, 64, False, 1.0),
-            ("small_64_c16", 2, 1, 64, 2, 8, 8, 16, False, 1.0),
-            ("small_128_c32", 2, 2, 128, 4, 16, 8, 32, False, 1.0),
-            ("small_96_c32", 2, 1, 96, 1, 32, 16, 32, False, 1.0),
-            ("small_50_c16", 2, 1, 50, 2, 8, 8, 16, False, 1.0),
-            ("small_200_c48", 2, 2, 200, 3, 64, 128, 48, False, 1.0),
-            ("one_step", 2, 2, 1, 4, 64, 128, 64, False, 1.0),
-            ("oracle_80", 2, 2, 80, 3, 16, 8, 64, True, 1.0),
-            ("overflow_128", 1, 2, 128, 2, 8, 8, 64, True, 200.0)):
+    for label, c, b, s, h, p, n, chunk, oracle, a_scale in B6_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             x, dt, A, B, C = inputs(c, b, s, h, p, n, dtype, a_scale)
             ch = min(chunk, s)
-            out = ssd_scan.ssd_scan_cuda(x, dt, A, B, C, chunk=ch)
+            kind = ssd_scan.variant(dtype, p, n)
+
+            def kernel(name=None):
+                return ssd_scan.ssd_scan_cuda(x, dt, A, B, C, chunk=ch,
+                                              kernel_variant=name)
+            out = kernel()
             want = ref.ref_ssd_chunked(x, dt, A, B, C, chunk=ch)
             tol = B6_TOL[str(dtype)[6:]]
             err, ok = close_err(out, want, tol)
+            exact = ref.ref_ssd_chunked(
+                *(t.double() for t in (x, dt, A, B, C)), chunk=ch,
+                compute_dtype=torch.float64)
             row = {"phase": "B6", "shape": label, "dtype": str(dtype)[6:],
-                   "C": c, "b": b, "s": s, "H": h, "P": p, "N": n,
-                   "chunk": ch, "max_abs_err": err, "tol": tol,
+                   "variant": kind, "C": c, "b": b, "s": s, "H": h, "P": p,
+                   "N": n, "chunk": ch, "max_abs_err": err, "tol": tol,
+                   "err_f64": float((out.double() - exact).abs().max()),
+                   "plain_err_f64": float((want.double() - exact)
+                                          .abs().max()),
                    "finite": bool(out.isfinite().all())}
+            del exact
             if oracle:
                 row["oracle_max_abs_err"], ok_o = close_err(
                     out, ref.ref_ssd(x, dt, A, B, C), tol)
                 ok = ok and ok_o
             reps = 5 if s >= 200 else 20
-            row["ms"] = event_ms(lambda: ssd_scan.ssd_scan_cuda(
-                x, dt, A, B, C, chunk=ch), reps)
+            row["ms"] = event_ms(kernel, reps)
+            row.update(device_fields("device_us", kernel))
+            replaced = lambda: kernel("cuda_cores")  # noqa: E731
+            if kind != "cuda_cores":
+                row["replaced_ms"] = event_ms(replaced, reps)
+                row.update(device_fields("replaced_device_us", replaced))
+            else:
+                row["replaced_ms"] = row["ms"]
+                row.update({f"replaced_{k}": row[k]
+                            for k in ("device_us", "device_us_kept")})
             row["plain_ms"] = event_ms(lambda: ref.ref_ssd_chunked(
                 x, dt, A, B, C, chunk=ch), reps)
-            row["bound_ms"], row["bound_by"] = bound_ms(
-                [x, dt, A, B, C, out], ssd_flops(s, ch, c * b, h, p, n))
+            flops = ssd_flops(s, ch, c * b, h, p, n)
+            # the least time on the CUDA cores (the operations at the
+            # float32 rate, or the bytes) and on the tensor cores (at the
+            # dense bf16 rate); `bound_ms` is that of the variant that ran
+            row["f32_bound_ms"], row["f32_bound_by"] = bound_ms(
+                [x, dt, A, B, C, out], flops)
+            row["tc_bound_ms"], row["tc_bound_by"] = bound_ms(
+                [x, dt, A, B, C, out], flops, peak_ops=PEAK_BF16_S)
+            on_tc = kind == "tensor_cores"
+            row["bound_ms"], row["bound_by"] = (
+                row["tc_bound_ms" if on_tc else "f32_bound_ms"],
+                row["tc_bound_by" if on_tc else "f32_bound_by"])
             # no single PyTorch call computes the SSD scan
             row["library_ms"] = None
             emit(row)
@@ -795,10 +921,19 @@ def main() -> int:
          str(Path(build.build_info["directory"]) / "libflash_attention.so")],
         capture_output=True, text=True, check=True).stdout
     hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    # B6's bf16 route runs on the tensor cores (wgmma, and mma.sync for
+    # G): HGMMA or HMMA in its machine code
+    sass6 = subprocess.run(
+        [cuobjdump, "--dump-sass",
+         str(Path(build.build_info["directory"]) / "libssd_scan.so")],
+        capture_output=True, text=True, check=True).stdout
+    tc6 = sum("HMMA" in ln or "HGMMA" in ln for ln in sass6.splitlines())
     emit({"phase": "build", "seconds": build.build_info["seconds"],
           "directory": build.build_info["directory"], "ptxas": ptxas,
-          "b5_hgmma_instructions": hgmma})
+          "b5_hgmma_instructions": hgmma,
+          "b6_tensor_core_instructions": tc6})
     check(hgmma > 0, "B5: no HGMMA instruction in its machine code")
+    check(tc6 > 0, "B6: no HMMA or HGMMA instruction in its machine code")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     int32 = dict(dtype=torch.int32, device=dev, generator=gen)
@@ -947,10 +1082,16 @@ def main() -> int:
         kw = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho,
                   n_sweeps=sweeps, doc_block=db, supervised=True,
                   product_form=product)
-        z_k, ndt_k = slda_train.slda_train_sweeps_cuda(*a, **kw)
+        (z_k, ndt_k), kind = variant_of(
+            slda_train.variant_launches,
+            lambda: slda_train.slda_train_sweeps_cuda(*a, **kw))
         z_p, ndt_p = ref.slda_train_sweeps_chains(*a, **kw)
         real = float(sh.mask.sum())
         mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
+        # the replaced kernel's draws, which the cluster variant repeats
+        same = replaced_agrees(
+            (z_k, ndt_k), slda_train.slda_train_sweeps_cuda(
+                *a, kernel_variant="block", **kw), sh.mask)
         err = float((ndt_k - ndt_p).abs().max())
         recount, ntw_k, nt_k = counts_from_assignments(sh.tokens, sh.mask,
                                                        z_k, t, W)
@@ -964,6 +1105,8 @@ def main() -> int:
                 (ntw_k, nt_k)))
         ms = event_ms(lambda: slda_train.slda_train_sweeps_cuda(*a, **kw),
                       10)
+        replaced_ms = event_ms(lambda: slda_train.slda_train_sweeps_cuda(
+            *a, kernel_variant="block", **kw), 10)
         plain = event_ms(lambda: ref.slda_train_sweeps_chains(*a, **kw), 1)
         copies = M * -(-d // db)            # one private table per block
         form = "B3_product" if product else "B3_log"
@@ -973,12 +1116,16 @@ def main() -> int:
         row = {"phase": "B3", "shape": label, "M": M, "D": d,
                "N": sh.max_len, "T": t, "W": W, "doc_block": db,
                "sweeps": sweeps, "product_form": product,
-               "real_tokens": real, "draw_mismatch": mis,
-               "max_abs_err": err, "counts_exact": exact,
-               "refresh_exact": refresh_exact, "ms": ms, "plain_ms": plain,
-               "bound_ms": b_ms, "bound_by": b_by}
+               "variant": kind, "real_tokens": real,
+               "draw_mismatch": mis, "max_abs_err": err,
+               "counts_exact": exact, "refresh_exact": refresh_exact,
+               "ms": ms, "replaced_ms": replaced_ms, "plain_ms": plain,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "replaced_draws_equal": same,
+               **critical_path(sh.mask, d, db, t, sweeps, ms, replaced_ms)}
         emit(row)
         rows.setdefault("B3", row)
+        check(same, f"B3 {label}: draws differ from the replaced kernel's")
         check(mis <= MISMATCH_MAX, f"B3 {label}: draw mismatch {mis}")
         check(exact, f"B3 {label}: ndt differs from counts of z")
         check(refresh_exact, f"B3 {label}: count refresh differs")
@@ -1113,10 +1260,16 @@ def main() -> int:
         a = (sh.tokens, sh.mask, sd, z, ndt, sh.y, inv_len, ntw_t, nt, eta)
         kw = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho, n_sweeps=8,
                   doc_block=db, supervised=True, product_form=True)
-        z_k, ndt_k = slda_train.slda_train_sweeps_cuda(
-            *a, topic_index=index, **kw)
+        (z_k, ndt_k), kind = variant_of(
+            slda_train.variant_launches,
+            lambda: slda_train.slda_train_sweeps_cuda(
+                *a, topic_index=index, **kw))
         (z_p, ndt_p), share = tallied(lambda: ref.slda_train_sweeps_chains(
             *a, topic_index=index, **kw))
+        same = replaced_agrees(
+            (z_k, ndt_k), slda_train.slda_train_sweeps_cuda(
+                *a, topic_index=index, kernel_variant="block", **kw),
+            sh.mask)
         real = float(sh.mask.sum())
         mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
         err = float((ndt_k - ndt_p).abs().max())
@@ -1125,6 +1278,8 @@ def main() -> int:
         exact = bool(torch.equal(recount, ndt_k))
         ms = event_ms(lambda: slda_train.slda_train_sweeps_cuda(
             *a, topic_index=index, **kw), 10)
+        replaced_ms = event_ms(lambda: slda_train.slda_train_sweeps_cuda(
+            *a, topic_index=index, kernel_variant="block", **kw), 10)
         dense_ms = event_ms(lambda: slda_train.slda_train_sweeps_cuda(
             *a, **kw), 10)
         plain = event_ms(lambda: ref.slda_train_sweeps_chains(
@@ -1141,9 +1296,15 @@ def main() -> int:
                "doc_block": db, "sweeps": 8, "product_form": True,
                "real_tokens": real, "draw_mismatch": mis,
                "max_abs_err": err, "counts_exact": exact,
-               "stage2_share": share, "ms": ms, "dense_ms": dense_ms,
-               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+               "stage2_share": share, "variant": kind, "ms": ms,
+               "replaced_ms": replaced_ms, "dense_ms": dense_ms,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+               "replaced_draws_equal": same,
+               **critical_path(sh.mask, d, db, t, 8, ms, replaced_ms,
+                               sparse=True)}
         emit(row)
+        check(same, f"B3_sparse {label}: draws differ from the replaced "
+              f"kernel's")
         check(mis <= MISMATCH_MAX, f"B3_sparse {label}: draw mismatch {mis}")
         check(exact, f"B3_sparse {label}: ndt differs from counts of z")
 
@@ -1274,22 +1435,30 @@ def main() -> int:
                       cfg=run_cfg)                           # warm-up
         for mod in modules.values():
             mod.launches = mod.sparse_launches = 0
+        b3_variants = slda_train.variant_launches
+        for v in b3_variants:
+            b3_variants[v] = 0
         res = fig6_mdna.run(args.seed, dev, data=(train, test), cfg=run_cfg)
         torch.cuda.synchronize()
         launches = {k: mod.launches for k, mod in modules.items()}
         sparse_launches = {k: mod.sparse_launches
                            for k, mod in modules.items()}
+        variants = dict(b3_variants)
         counted[phase, run_cfg.sweeps_per_launch] = (launches,
-                                                     sparse_launches)
+                                                     sparse_launches,
+                                                     variants)
         emit({"phase": phase, "card": smi,
               "sweeps_per_launch": run_cfg.sweeps_per_launch,
               "sampler_mode": run_cfg.sampler_mode,
               "sparse_topic_cap": min(run_cfg.sparse_topic_cap, T0),
               "launches": launches, "sparse_launches": sparse_launches,
-              **res})
+              "b3_variant_launches": variants, **res})
         mse = {k: v["test_mse"] for k, v in res["algorithms"].items()}
         var_y = res["var_y_test"]
         check(launches == want, f"{phase}: launch counts {launches}")
+        # every fused launch of the main path on the cluster variant
+        check(variants["cluster"] == launches["B3"],
+              f"{phase}: B3 launches by variant {variants}")
         want_sparse = launches if run_cfg.sampler_mode == "sparse" else \
             {k: 0 for k in launches}
         check(sparse_launches == want_sparse,
@@ -1333,11 +1502,16 @@ def main() -> int:
                       if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                      key=dev_us, reverse=True)
         busy_ms = sum(dev_us(e) for e in ops) / 1e3
+        # B3's kernels (either variant) as a share of the busy time
+        b3_ms = sum(dev_us(e) for e in ops if "train_cluster_kernel" in e.key
+                    or "train_sweeps_kernel" in e.key) / 1e3
         line = {"phase": "profile", "algorithm": "simple",
                 "sweeps_per_launch": run_cfg.sweeps_per_launch,
                 "sampler_mode": run_cfg.sampler_mode,
                 "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "device_idle_share": 1.0 - busy_ms / wall_ms if ops else None,
+                "b3_ms": b3_ms,
+                "b3_share_of_busy": b3_ms / busy_ms if ops else None,
                 "top_kernels": [{"name": e.key[:70], "calls": e.count,
                                  "ms": dev_us(e) / 1e3} for e in ops[:8]]}
         if run_cfg.sampler_mode == "sparse":
@@ -1376,6 +1550,8 @@ def main() -> int:
         "B3": counted["end_to_end_fused", 8][0]["B3"],
         "B4": sum(sum(run.values()) for run in sparse_runs),
         **lm_launches, **ssm_launches}
+    # B3's launches in that run by variant (all of them cluster, checked)
+    variants_of = {"B3": counted["end_to_end_fused", 8][2]}
     sources = {"B1": ("slda_predict_sweeps", "slda_predict.cu",
                       "src/repro/kernels/slda_predict.py:119"),
                "B2": ("slda_gibbs_sweep", "slda_gibbs.cu",
@@ -1402,7 +1578,9 @@ def main() -> int:
         "ms": rows[k]["ms"], "plain_ms": rows[k]["plain_ms"],
         "bound_ms": rows[k]["bound_ms"], "bound_by": rows[k]["bound_by"],
         "library_ms": rows[k].get("library_ms"),
-        **({"variant": rows[k]["variant"]} if "variant" in rows[k] else {})}
+        **({"variant": rows[k]["variant"]} if "variant" in rows[k] else {}),
+        **({"variant_launches": variants_of[k]} if k in variants_of
+           else {})}
         for k, (name, src, rep) in sources.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -18,26 +18,50 @@
 // their topic.  The global ntw_t and nt are inputs only; the caller
 // refreshes them from (z0, z_final).
 //
-// What bounds it on the card: the latency of the sequential token chain,
-// as in B1/B2 (a dependent row load from the table in L2, the exp (or
-// three logs) per topic, a warp max, the left-to-right prefix sum and a
-// ballot per token), not bytes or operations.  The design:
-//  * one CTA per (chain, doc block): the block is the delayed-count
-//    partition, so it is semantics, not tiling.  The grid has only M·B
-//    CTAs (24 at the MD&A slice), far below the card's 132 SMs; that is
-//    the price of the semantics.
-//  * the private table does not fit on chip (271 KB at W=4238, T=16, more
-//    than an SM's 227 KB of shared memory), so it lives in a global
-//    scratch [M, B, W, T] that the wrapper allocates, and is served from
-//    L2 (loads with __ldcg, updates with atomicAdd at L2).  nt lives in
-//    shared memory.  All updates are ±1 on integers below 2^24, so
-//    atomics in any order are exact and equal the reference's scatter.
-//  * inside the CTA, B2's per-document design: one warp per document at a
-//    time (each warp walks several documents of the block), topic t in
-//    lane t mod 32, ndt / nt / η in registers, padding tokens skipped by
-//    a ballot.  z ping-pongs between z_out and z_buf so that the refresh
-//    sees each token's sweep-start and new topic; ndt is kept in ndt_out
-//    between sweeps.  Order: sweep, __syncthreads, deltas, __syncthreads.
+// What bounds it on the card: neither bytes nor operations but the
+// critical path, the dependent token steps of the longest walk (the real
+// tokens one group of lanes draws in turn, times the sweeps), times the
+// latency of a step (the p_t arithmetic with its divide and exp, a
+// group max, the left-to-right prefix sum through shared memory, a
+// ballot).  Two variants, named by the wrapper:
+//
+// * cluster (the main path).  A doc block is split across a thread-block
+//   cluster of up to 8 CTAs of 16 warps on neighbouring SMs
+//   (cudaLaunchKernelEx with a cluster dimension; Hopper only), so the
+//   grid grows from M·B CTAs to M·B·cluster.  Documents go to (CTA, warp,
+//   group) slots by a table the wrapper builds (`slda_train.slot_plan`):
+//   at T <= 16 (dense draw) each half-warp is a group that walks its own
+//   document, topic t in lane t of the half, with the max, prefix sum and
+//   ballot per half; else a group is the whole warp, topic t in lane
+//   t mod 32, slot t / 32, as before.  At the MD&A slice that is one
+//   document a group where the replaced kernel walked about four a warp.
+//   The block's private table stays one copy per block in the global
+//   scratch `local` (271 KB at W = 4238, T = 16, more than an SM holds),
+//   filled by all CTAs of the cluster, read through L2; nt is kept once
+//   per cluster, in the shared memory of the cluster's first CTA, which
+//   every CTA copies at the start of a sweep and to which each CTA adds
+//   its deltas, summed in its own shared memory first, one remote add a
+//   topic (distributed shared memory; a remote add a token onto T hot
+//   floats cost 1.28 against 0.91 ms a launch at the MD&A slice on an
+//   H100, by chip_smoke.py).
+//   Cluster barriers stand
+//   between the sweep and the deltas and between the deltas and the next
+//   sweep.  Deltas stay ±1 on integer-valued floats below 2^24, so any
+//   order of atomics is exact.  Off the dependent chain: within a sweep
+//   the block's table is frozen, so everything of the next real token but
+//   the counts (its lane, word, mask, old topic and that topic's η, its
+//   uniform and its table row) is gathered while this token draws, and
+//   the next window's words, masks and topics a window ahead; η comes
+//   from registers by shuffle, not from memory.  The draws are those of
+//   the replaced kernel bit for bit: the same expressions, the same
+//   left-to-right prefix sum, the same butterfly for the starting s (a
+//   half-warp's butterfly equals the warp's when lanes 16-31 add zeros).
+//
+// * block (the kernel the cluster variant replaced, kept to time it
+//   beside it): one CTA per (chain, doc block), each warp walking the
+//   block's documents d0 + warp, + 32, ... one after the other, every
+//   token's table row loaded from L2 on the dependent chain.
+//
 // It is built without fused multiply-add contraction so that each
 // expression rounds as the plain version's separate tensor operations do.
 //
@@ -46,13 +70,19 @@
 // chain's LAUNCH-frozen topic index (idx, vmask [M, W, cap], occm
 // [M, W, T], built by the caller from the entry ntw_t): every doc block of
 // the chain reads the same index, which the between-sweep deltas never
-// touch.  The warp's staging grows from K·32 to 2·K·32 + 16 floats, which
-// keeps the static shared memory under 48 KB (33.8 KB at K = 8 with 16
-// warps): the residual reuses p's stage, and the prefix sums stay in
-// registers.
+// touch.  They walk one document a warp in both variants.  The warp's
+// staging grows from K·32 to 2·K·32 + 16 floats, which keeps the static
+// shared memory under 48 KB (33.8 KB at K = 8 with 16 warps): the
+// residual reuses p's stage, and the prefix sums stay in registers.
+
+#include <cooperative_groups.h>
+
 #include "slda_common.cuh"
 
 namespace slda {
+
+// ---------------------------------------------------------------------------
+// block
 
 template <int K, int WARPS, bool SPARSE>
 __global__ void __launch_bounds__(WARPS * 32)
@@ -253,6 +283,370 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
   }
 }
 
+// ---------------------------------------------------------------------------
+// cluster
+
+// the drawing group's max and sum (G = 16: a half-warp's butterfly)
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// this group's bits of a warp ballot
+template <int G>
+__device__ __forceinline__ unsigned group_bits(unsigned v, int shift) {
+  return G == 32 ? v : (v >> shift) & 0xffffu;
+}
+
+// η of topic z (< T), from the group's registers (topic t in group lane
+// t mod G, slot t / G)
+template <int K, int G>
+__device__ __forceinline__ float eta_of(const float (&eta_r)[K], int z) {
+  float e = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float v = __shfl_sync(kFull, eta_r[k], z & (G - 1), G);
+    if (z / G == k) e = v;
+  }
+  return e;
+}
+
+// `draw_topic` for a half-warp group (T <= 16, one topic a lane): the
+// same left-to-right prefix sum, counted in the half's bits; the total is
+// the last topic's prefix, the same chain of additions
+__device__ __forceinline__ int draw_topic_half(float p, float u, int gl,
+                                               int T, float* sp, int shift) {
+  if (gl < T) sp[gl] = p;
+  __syncwarp();
+  float c = 0.f;
+#pragma unroll 16
+  for (int i = 0; i < T; ++i) {
+    const float pi = sp[i];
+    if (i <= gl) c += pi;
+  }
+  __syncwarp();  // sp is rewritten by the next token
+  const float total = __shfl_sync(kFull, c, T - 1, 16);
+  const float thr = u * total;
+  return __popc(group_bits<16>(__ballot_sync(kFull, gl < T && c < thr),
+                               shift));
+}
+
+// G lanes draw one document (G = 16: two documents a warp, T <= 16, K =
+// 1; G = 32: one, K topics a lane); `slots` [B, cluster, WARPS, 32 / G,
+// per_slot] names each group's documents (-1: none).
+// At K = 1 two CTAs share an SM (64 registers a thread), so that the
+// sparse draw's 8-CTA clusters of the MD&A slice fit the card in one wave.
+template <int K, int WARPS, bool SPARSE, int G>
+__global__ void __launch_bounds__(WARPS * 32, K == 1 ? 2 : 1)
+train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
+                     const float* __restrict__ mask,     // [M, D, N]
+                     const int* __restrict__ seeds,      // [M, D]
+                     const int* z0,                      // [M, D, N]
+                     const float* ndt0,                  // [M, D, T]
+                     const float* __restrict__ y,        // [M, D]
+                     const float* __restrict__ inv_len,  // [M, D]
+                     const float* __restrict__ ntw_t,    // [M, W, T]
+                     const float* __restrict__ nt,       // [M, T]
+                     const float* __restrict__ eta,      // [M, T]
+                     int* z_out,                         // [M, D, N]
+                     float* ndt_out,                     // [M, D, T]
+                     int* z_buf,                         // [M, D, N]
+                     float* local,                       // [M, B, W, T]
+                     int D, int N, int T, int W, int n_sweeps,
+                     int ctr_stride, float alpha, float beta, float w_beta,
+                     float rho, int supervised, int product_form,
+                     const int* __restrict__ idx,        // [M, W, cap]
+                     const float* __restrict__ vmask,    // [M, W, cap]
+                     const float* __restrict__ occm,     // [M, W, T]
+                     int cap, const int* __restrict__ slots, int per_slot) {
+  static_assert(G == 32 || (G == 16 && K == 1 && !SPARSE), "groups");
+  constexpr int NG = 32 / G;  // documents a warp walks at once
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / G, gl = lane % G, shift = grp * G;
+  const int b = blockIdx.x / cs, c = blockIdx.y;
+  const int n_blocks = gridDim.x / cs;
+  __shared__ float stage[WARPS][SPARSE ? 2 * K * 32 + 16 : K * 32];
+  __shared__ float nt_s[K * 32];  // the first CTA: the cluster's nt; others
+                                  // a copy of it for the sweep
+  __shared__ float nt_d[K * 32];  // this CTA's nt deltas of a sweep
+  float* sp = stage[warp] + (G == 16 ? 16 * grp : 0);
+  float* nt_master = cluster.map_shared_rank(nt_s, 0);
+  const float* eta_c = eta + static_cast<size_t>(c) * T;
+  const size_t table_size = static_cast<size_t>(W) * T;
+  const float* table_in = ntw_t + static_cast<size_t>(c) * table_size;
+  float* table_loc =
+      local + (static_cast<size_t>(c) * n_blocks + b) * table_size;
+  const int* my_slots =
+      slots + ((static_cast<size_t>(b) * cs + rank) * WARPS + warp) * NG *
+                  per_slot;
+
+  // the block's private copies of its chain's table (filled by the whole
+  // cluster) and nt (in the first CTA)
+  if (n_sweeps > 1)
+    for (size_t i = static_cast<size_t>(rank) * blockDim.x + threadIdx.x;
+         i < table_size; i += static_cast<size_t>(cs) * blockDim.x)
+      __stcg(table_loc + i, table_in[i]);
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    if (rank == 0) nt_s[t] = nt[static_cast<size_t>(c) * T + t];
+    nt_d[t] = 0.f;
+  }
+  cluster.sync();
+  const float* table = n_sweeps > 1 ? table_loc : table_in;
+
+  float eta_r[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int t = gl + G * k;
+    eta_r[k] = t < T ? eta_c[t] : 0.f;
+  }
+
+  const int* z_src = z0;
+  for (int s = 0; s < n_sweeps; ++s) {
+    // the last sweep writes z_out; earlier ones alternate with z_buf
+    int* z_dst = (n_sweeps - 1 - s) % 2 == 0 ? z_out : z_buf;
+    const float* nd_src = s == 0 ? ndt0 : ndt_out;
+    const uint32_t ctr0 = static_cast<uint32_t>(s) *
+                          static_cast<uint32_t>(ctr_stride);
+    if (rank != 0) {
+      for (int t = threadIdx.x; t < T; t += blockDim.x) nt_s[t] = nt_master[t];
+      __syncthreads();
+    }
+    float nt_r[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int t = gl + G * k;
+      nt_r[k] = t < T ? nt_s[t] : 0.f;
+    }
+
+    for (int e = 0; e < per_slot; ++e) {  // warp-uniform
+      const int d = my_slots[grp * per_slot + e];
+      const bool has = d >= 0;
+      const size_t row = has ? static_cast<size_t>(c) * D + d : 0;
+      float nd[K];
+      float s_part = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int t = gl + G * k;
+        nd[k] = has && t < T ? nd_src[row * T + t] : 0.f;
+        s_part += nd[k] * eta_r[k];
+      }
+      float st = group_sum<G>(s_part);  // running Σ_t η_t ndt_t
+      const float yd = has ? y[row] : 0.f;
+      const float il = has ? inv_len[row] : 0.f;
+      const uint32_t seed = has ? static_cast<uint32_t>(seeds[row]) : 0u;
+
+      // The window of G positions at n0 (words, masks, topics a lane) and
+      // its real tokens.  `cur` is the token this group draws next, its
+      // lane, word, mask, old topic and η, uniform and table row gathered
+      // while the token before it drew: none of them depends on this
+      // sweep's draws (the block's table is frozen within a sweep).
+      int w_l = 0, z_l = 0;
+      float m_l = 0.f;
+      if (has && gl < N) {
+        const size_t at = row * N + gl;
+        w_l = tokens[at];
+        m_l = mask[at];
+        z_l = z_src[at];
+      }
+      unsigned bits = group_bits<G>(__ballot_sync(kFull, m_l > 0.f), shift);
+      struct Tok {
+        int j, w, z_old;
+        float m, eta_old, u, row[K];
+      };
+      // the first token of `b` among the lane values (wv, mv, zv) of the
+      // window at `base`; every lane calls it (it shuffles), and a group
+      // with no token (b == 0) loads nothing
+      auto peek = [&](unsigned b, int wv, float mv, int zv, int base) {
+        Tok k_;
+        k_.j = b ? __ffs(b) - 1 : 0;
+        k_.w = __shfl_sync(kFull, wv, k_.j, G);
+        k_.m = __shfl_sync(kFull, mv, k_.j, G);
+        k_.z_old = __shfl_sync(kFull, zv, k_.j, G);
+        k_.eta_old = eta_of<K, G>(eta_r, k_.z_old);
+        k_.u = counter_uniform(seed, ctr0 + base + k_.j);
+        const float* r = table + static_cast<size_t>(k_.w) * T;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int t = gl + G * k;
+          k_.row[k] = b && t < T ? __ldcg(r + t) : 0.f;
+        }
+        return k_;
+      };
+      Tok cur;
+      bool have = false;  // cur is this window's first token already
+      for (int n0 = 0; n0 < N; n0 += G) {  // warp-uniform
+        {
+          const Tok first = peek(have ? 0u : bits, w_l, m_l, z_l, n0);
+          if (!have) cur = first;
+          have = false;
+        }
+        bool cv = bits != 0;                // cur is a token to draw
+        unsigned rest = bits & (bits - 1);  // the window's tokens after it
+        // the next window, a window ahead
+        const int nn = n0 + G + gl;
+        int w_n = 0, z_n = 0;
+        float m_n = 0.f;
+        if (has && nn < N) {
+          const size_t at = row * N + nn;
+          w_n = tokens[at];
+          m_n = mask[at];
+          z_n = z_src[at];
+        }
+        while (__any_sync(kFull, cv)) {
+          // the next token while this one draws: the next in this window,
+          // else the first of the next window (once)
+          const unsigned nreal =
+              group_bits<G>(__ballot_sync(kFull, m_n > 0.f), shift);
+          const bool more = rest != 0;
+          const Tok nxt = peek(more ? rest : (have ? 0u : nreal),
+                               more ? w_l : w_n, more ? m_l : m_n,
+                               more ? z_l : z_n, more ? n0 : n0 + G);
+          const float m = cv ? cur.m : 0.f;  // an idle group changes nothing
+          const int z_old = cur.z_old;
+          st = st - cur.eta_old * m;
+          float p[K];
+          if (product_form) {
+            float g[K];
+            float gmax = -INFINITY;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              const int t = gl + G * k;
+              const float old = t == z_old ? m : 0.f;
+              nd[k] = nd[k] - old;
+              p[k] = 0.f;
+              g[k] = 0.f;
+              if (t < T) {
+                p[k] = ((nd[k] + alpha) * ((cur.row[k] - old) + beta))
+                       / ((nt_r[k] - old) + w_beta);
+                if (supervised) {
+                  const float e = yd - (st + eta_r[k]) * il;
+                  g[k] = (-0.5f * (e * e)) / rho;
+                  gmax = fmaxf(gmax, g[k]);
+                }
+              }
+            }
+            if (supervised) {
+              gmax = group_max<G>(gmax);
+#pragma unroll
+              for (int k = 0; k < K; ++k)
+                if (gl + G * k < T) p[k] = p[k] * expf(g[k] - gmax);
+            }
+          } else {
+            float lp[K];
+            float mx = -INFINITY;
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              const int t = gl + G * k;
+              const float old = t == z_old ? m : 0.f;
+              nd[k] = nd[k] - old;
+              lp[k] = -INFINITY;
+              if (t < T) {
+                float l = (logf(nd[k] + alpha) +
+                           logf((cur.row[k] - old) + beta)) -
+                          logf((nt_r[k] - old) + w_beta);
+                if (supervised) {
+                  const float e = yd - (st + eta_r[k]) * il;
+                  l = l - (0.5f * (e * e)) / rho;
+                }
+                lp[k] = l;
+                mx = fmaxf(mx, l);
+              }
+            }
+            mx = group_max<G>(mx);
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              p[k] = gl + G * k < T ? expf(lp[k] - mx) : 0.f;
+          }
+          int z_new;
+          if constexpr (SPARSE) {
+            const size_t r = static_cast<size_t>(c) * W + cur.w;
+            z_new = draw_topic_sparse<K>(p, cur.u, lane, T, sp,
+                                         idx + r * cap, vmask + r * cap,
+                                         occm + r * T, cap);
+          } else if constexpr (G == 16) {
+            z_new = draw_topic_half(p[0], cur.u, gl, T, sp, shift);
+          } else {
+            z_new = draw_topic<K>(p, cur.u, lane, T, sp);
+          }
+#pragma unroll
+          for (int k = 0; k < K; ++k)
+            nd[k] = nd[k] + (gl + G * k == z_new ? m : 0.f);
+          st = st + eta_of<K, G>(eta_r, z_new) * m;
+          if (cv && gl == cur.j) z_l = z_new;
+          if (more) {
+            cur = nxt;
+            rest &= rest - 1;
+          } else {
+            cv = false;
+            if (nreal && !have) {
+              cur = nxt;
+              have = true;
+            }
+          }
+        }
+        if (has && n0 + gl < N) z_dst[row * N + n0 + gl] = z_l;
+        w_l = w_n;
+        m_l = m_n;
+        z_l = z_n;
+        bits = group_bits<G>(__ballot_sync(kFull, m_l > 0.f), shift);
+      }
+      if (has) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const int t = gl + G * k;
+          if (t < T) ndt_out[row * T + t] = nd[k];
+        }
+      }
+    }
+
+    if (s + 1 < n_sweeps) {
+      cluster.sync();  // every document of the block has swept
+      // the warp's documents' ±1 reassignments land on the block's table
+      // copy, and summed over the CTA on the cluster's nt (integers below
+      // 2^24: exact in any order)
+      for (int q = 0; q < NG * per_slot; ++q) {
+        const int d = my_slots[q];
+        if (d < 0) continue;  // warp-uniform
+        const size_t row = static_cast<size_t>(c) * D + d;
+        for (int n = lane; n < N; n += 32) {
+          const size_t at = row * N + n;
+          const float m = mask[at];
+          const int zo = z_src[at], zn = z_dst[at];
+          if (m > 0.f && zo != zn) {
+            float* trow = table_loc + static_cast<size_t>(tokens[at]) * T;
+            atomicAdd(trow + zo, -m);
+            atomicAdd(trow + zn, m);
+            atomicAdd(nt_d + zo, -m);
+            atomicAdd(nt_d + zn, m);
+          }
+        }
+      }
+      __syncthreads();
+      for (int t = threadIdx.x; t < T; t += blockDim.x) {
+        if (nt_d[t] != 0.f) atomicAdd(nt_master + t, nt_d[t]);
+        nt_d[t] = 0.f;
+      }
+      cluster.sync();
+    }
+    z_src = z_dst;
+  }
+  cluster.sync();  // the first CTA's nt outlives every read of it
+}
+
 }  // namespace slda
 
 extern "C" int slda_train_sweeps_launch(
@@ -263,10 +657,16 @@ extern "C" int slda_train_sweeps_launch(
     int W, int doc_block, int n_sweeps, int ctr_stride, float alpha,
     float beta, float w_beta, float rho, int supervised, int product_form,
     const int* idx, const float* vmask, const float* occm, int cap,
+    int variant, const int* slots, int cluster, int groups, int per_slot,
     void* stream) {
-  const dim3 grid((D + doc_block - 1) / doc_block, M);
+  const int n_blocks = (D + doc_block - 1) / doc_block;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // a null idx is the dense draw; else the sparse one over cap <= T slots
+  const int K = (T + 31) / 32;
+  if (K < 1 || K > 8) return static_cast<int>(cudaErrorInvalidValue);
+  if (variant == 0) {
+    // block: one CTA per (chain, doc block); a null idx is the dense
+    // draw, else the sparse one over cap <= T slots
+    const dim3 grid(n_blocks, M);
 #define SLDA_TRAIN_AS(K, WARPS, SPARSE)                                     \
   slda::train_sweeps_kernel<K, WARPS, SPARSE>                               \
       <<<grid, (WARPS) * 32, 0, st>>>(                                      \
@@ -277,18 +677,64 @@ extern "C" int slda_train_sweeps_launch(
 #define SLDA_TRAIN(K, WARPS)                                                \
   if (idx) SLDA_TRAIN_AS(K, WARPS, true);                                   \
   else SLDA_TRAIN_AS(K, WARPS, false)
-  switch ((T + 31) / 32) {
-    case 1: SLDA_TRAIN(1, 32); break;
-    case 2: SLDA_TRAIN(2, 32); break;
-    case 3: SLDA_TRAIN(3, 16); break;
-    case 4: SLDA_TRAIN(4, 16); break;
-    case 5: SLDA_TRAIN(5, 16); break;
-    case 6: SLDA_TRAIN(6, 16); break;
-    case 7: SLDA_TRAIN(7, 16); break;
-    case 8: SLDA_TRAIN(8, 16); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+    switch (K) {
+      case 1: SLDA_TRAIN(1, 32); break;
+      case 2: SLDA_TRAIN(2, 32); break;
+      case 3: SLDA_TRAIN(3, 16); break;
+      case 4: SLDA_TRAIN(4, 16); break;
+      case 5: SLDA_TRAIN(5, 16); break;
+      case 6: SLDA_TRAIN(6, 16); break;
+      case 7: SLDA_TRAIN(7, 16); break;
+      case 8: SLDA_TRAIN(8, 16); break;
+    }
 #undef SLDA_TRAIN
 #undef SLDA_TRAIN_AS
+    return static_cast<int>(cudaGetLastError());
+  }
+  // cluster: `slots` [n_blocks, cluster, 16 warps, groups, per_slot] from
+  // the wrapper's plan; two groups a warp only for the dense draw at
+  // T <= 16
+  if (variant != 1 || !slots || cluster < 1 || cluster > 8 || per_slot < 1 ||
+      !(groups == 1 || (groups == 2 && T <= 16 && !idx)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kWarps = 16;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_blocks * cluster, M);
+  cfg.blockDim = dim3(kWarps * 32);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e;
+#define SLDA_CLUSTER_AS(K, SPARSE, G)                                       \
+  e = cudaLaunchKernelEx(                                                   \
+      &cfg, slda::train_cluster_kernel<K, kWarps, SPARSE, G>, tokens, mask, \
+      seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta, z_out, ndt_out, z_buf,   \
+      local, D, N, T, W, n_sweeps, ctr_stride, alpha, beta, w_beta, rho,    \
+      supervised, product_form, idx, vmask, occm, cap, slots, per_slot)
+#define SLDA_CLUSTER(K)                                                     \
+  if (idx) SLDA_CLUSTER_AS(K, true, 32);                                    \
+  else SLDA_CLUSTER_AS(K, false, 32)
+  switch (K) {
+    case 1:
+      if (groups == 2) SLDA_CLUSTER_AS(1, false, 16);
+      else SLDA_CLUSTER(1);
+      break;
+    case 2: SLDA_CLUSTER(2); break;
+    case 3: SLDA_CLUSTER(3); break;
+    case 4: SLDA_CLUSTER(4); break;
+    case 5: SLDA_CLUSTER(5); break;
+    case 6: SLDA_CLUSTER(6); break;
+    case 7: SLDA_CLUSTER(7); break;
+    default: SLDA_CLUSTER(8); break;
+  }
+#undef SLDA_CLUSTER
+#undef SLDA_CLUSTER_AS
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

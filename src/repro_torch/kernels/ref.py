@@ -409,10 +409,12 @@ def ref_ssd(x, dt, A, B, C):
     return torch.stack(ys, 2).to(x.dtype)
 
 
-def ref_ssd_chunked(x, dt, A, B, C, *, chunk=64):
+def ref_ssd_chunked(x, dt, A, B, C, *, chunk=64,
+                    compute_dtype=torch.float32):
     """Plain B6: the reference's chunk algebra (`ssd_chunked_jnp`, the
-    twin of its Pallas kernel) in float32, s zero-padded to a multiple of
-    `chunk`.  Shapes as `ref_ssd`.  Per chunk of L steps, with cum the
+    twin of its Pallas kernel) in float32 (or `compute_dtype`: float64
+    gives `chip_smoke.py` a yardstick for the kernel and this version
+    alike), s zero-padded to a multiple of `chunk`.  Shapes as `ref_ssd`.  Per chunk of L steps, with cum the
     running sum of A·dt inside it:
       y   = ((C Bᵀ) ∘ M) x + exp(cum) ∘ (C h₀ᵀ),
             M[t, s] = exp(cum_t − cum_s)·dt_s for s ≤ t, else 0;
@@ -422,7 +424,7 @@ def ref_ssd_chunked(x, dt, A, B, C, *, chunk=64):
     Cn, b, s, h, p = x.shape
     n = B.shape[-1]
     pad = (-s) % chunk
-    xf, dtf, Bf, Cf = (t.float() for t in (x, dt, B, C))
+    xf, dtf, Bf, Cf = (t.to(compute_dtype) for t in (x, dt, B, C))
     if pad:
         xf = torch.nn.functional.pad(xf, (0, 0, 0, 0, 0, pad))
         dtf, Bf, Cf = (torch.nn.functional.pad(t, (0, 0, 0, pad))
@@ -433,8 +435,8 @@ def ref_ssd_chunked(x, dt, A, B, C, *, chunk=64):
     dtc = dtf.reshape(Cn, b, nc, L, h)
     Bc, Cc = (t.reshape(Cn, b, nc, L, n) for t in (Bf, Cf))
     tri = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
-    Af = A.float()[:, None, None, :]                            # [C,1,1,h]
-    state = torch.zeros((Cn, b, h, p, n), dtype=torch.float32,
+    Af = A.to(compute_dtype)[:, None, None, :]                  # [C,1,1,h]
+    state = torch.zeros((Cn, b, h, p, n), dtype=compute_dtype,
                         device=x.device)
     ys = []
     for k in range(nc):

@@ -2,11 +2,16 @@
 
 `slda_train_sweeps_cuda` launches `csrc/slda_train.cu`, which replaces the
 TPU kernel `_train_kernel` of the reference (`repro/kernels/slda_train.py`);
-the note at the head of the source says what bounds it and what its
-design does about that.  The plain version is
-`ref.slda_train_sweeps_chains`.  `launches` counts the kernel's
-launches and nothing else; `sparse_launches` counts those of them that
-drew with the sparse two-stage draw (kernel B4).
+the note at the head of the source says what bounds it and what each
+variant's design does about that.  The main path runs the `cluster`
+variant: each doc block split across a thread-block cluster (Hopper
+only), its documents assigned to (CTA, warp, group) slots by
+`slot_plan`; `block` (one CTA per doc block) is the kernel it replaced; `walks` gives
+either variant's order of documents.  The plain version is
+`ref.slda_train_sweeps_chains`.  `launches` counts the kernel's launches
+and nothing else, `variant_launches` the same launches by variant;
+`sparse_launches` counts those of them that drew with the sparse
+two-stage draw (kernel B4).
 """
 from __future__ import annotations
 
@@ -19,20 +24,91 @@ from . import build
 launches = 0
 sparse_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P] * 14 + [_I] * 8 + [_F] * 4 + [_I, _I] + [_P] * 3 + [_I, _P]
+_ARGS = ([_P] * 14 + [_I] * 8 + [_F] * 4 + [_I, _I] + [_P] * 3 + [_I, _I, _P]
+         + [_I] * 3 + [_P])
+# the C launcher's numbering
+VARIANTS = ("block", "cluster")
+variant_launches = dict.fromkeys(VARIANTS, 0)
+# warps a CTA of the cluster variant, CTAs a cluster at most (the portable
+# limit), topics a half-warp group draws at most
+WARPS = 16
+MAX_CLUSTER = 8
+HALF_WARP_TOPICS = 16
+_plans: dict = {}          # (D, doc_block, T, sparse, device) -> slots
+
+
+def slot_plan(D: int, doc_block: int, T: int, *, sparse: bool = False):
+    """The cluster variant's assignment of documents to lanes: (cluster,
+    slots) with `cluster` the CTAs that share a doc block (at most 8) and
+    `slots` int32 [n_blocks, cluster, WARPS, groups, per_slot] the
+    documents (indices into the chain's D) each group of lanes walks in
+    turn, -1 where none.  A group is a half-warp (two documents a warp)
+    for the dense draw at T <= 16, else a whole warp.  Each document is
+    taken once, by a slot of its own block's cluster; the i-th document
+    of a block goes to slot i mod S (S slots a cluster: CTA fastest, then
+    warp, then group), so a block short of documents fills every CTA's
+    first group before any second one."""
+    groups = 2 if T <= HALF_WARP_TOPICS and not sparse else 1
+    n_blocks = -(-D // doc_block)
+    width = min(doc_block, D)                  # the fullest block's docs
+    cluster = min(MAX_CLUSTER, -(-width // (WARPS * groups)))
+    n_slots = cluster * WARPS * groups
+    per_slot = -(-width // n_slots)
+    slots = torch.full((n_blocks, per_slot, groups, WARPS, cluster), -1,
+                       dtype=torch.int32)
+    flat = slots.view(n_blocks, -1)
+    for b in range(n_blocks):
+        docs = torch.arange(b * doc_block, min(D, (b + 1) * doc_block),
+                            dtype=torch.int32)
+        flat[b, :docs.numel()] = docs
+    # slot i = (entry, group, warp, CTA) with the CTA fastest
+    return cluster, slots.permute(0, 4, 3, 2, 1).contiguous()
+
+
+def walks(D: int, doc_block: int, T: int, variant: str, *,
+          sparse: bool = False):
+    """The documents each group of lanes of `variant` draws in turn, int64
+    [walks, per_walk] (-1: none): the cluster variant's slots
+    (`slot_plan`), or the block variant's warps (warp w of a block walks
+    its documents w, w + warps, ...; 32 warps a CTA up to T = 64, else
+    16, as the C launcher picks them)."""
+    if variant == "cluster":
+        _, slots = slot_plan(D, doc_block, T, sparse=sparse)
+        return slots.reshape(-1, slots.shape[-1]).long()
+    if variant != "block":
+        raise ValueError(f"slda_train: no {variant} variant")
+    warps = 32 if T <= 64 else 16
+    per = -(-min(doc_block, D) // warps)
+    out = torch.full((-(-D // doc_block), per, warps), -1)
+    for b in range(out.shape[0]):
+        docs = torch.arange(b * doc_block, min(D, (b + 1) * doc_block))
+        out[b].view(-1)[:docs.numel()] = docs   # d0 + i at (i // w, i % w)
+    return out.transpose(1, 2).reshape(-1, per)
+
+
+def _slots_on(D, doc_block, T, sparse, dev):
+    key = (D, doc_block, T, sparse, dev)
+    plan = _plans.get(key)
+    if plan is None:
+        cluster, slots = slot_plan(D, doc_block, T, sparse=sparse)
+        plan = _plans[key] = (cluster, slots.to(dev))
+    return plan
 
 
 def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
                            nt, eta, *, alpha, beta, rho, n_sweeps,
                            doc_block, supervised=True, product_form=False,
-                           ctr_stride=None, topic_index=None):
+                           ctr_stride=None, topic_index=None,
+                           kernel_variant="cluster"):
     """tokens int32 / mask f32 / z0 int32 [M, D, N]; seeds int32 [M, D];
     ndt0 f32 [M, D, T]; y, inv_len f32 [M, D]; ntw_t f32 [M, W, T]; nt,
     eta f32 [M, T]; topic_index None (the dense draw) or the sparse
-    draw's launch-frozen (idx, vmask, occm) of ntw_t.  Returns (z_final
-    [M, D, N], ndt_final [M, D, T]), on the current stream.  D need not be a multiple of `doc_block`: the
-    last block of each chain is short, which is the reference's padding
-    with empty documents."""
+    draw's launch-frozen (idx, vmask, occm) of ntw_t.  `kernel_variant`
+    "cluster" (the main path) or "block", the kernel it replaced, which
+    `chip_smoke.py` times on the same inputs.  Returns (z_final
+    [M, D, N], ndt_final [M, D, T]), on the current stream.  D need not
+    be a multiple of `doc_block`: the last block of each chain is short,
+    which is the reference's padding with empty documents."""
     global launches, sparse_launches
     M, D, N = tokens.shape
     W, T = ntw_t.shape[-2:]
@@ -53,6 +129,8 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
         raise ValueError(f"the training kernel takes 1 <= T <= 256, got {T}")
     if n_sweeps < 1 or doc_block < 1:
         raise ValueError(f"n_sweeps={n_sweeps}, doc_block={doc_block}")
+    if kernel_variant not in VARIANTS:
+        raise ValueError(f"slda_train: no {kernel_variant} variant")
     index = build.topic_index_operands(topic_index, M, W, T, dev)
     z_out = torch.empty_like(z0)
     ndt_out = torch.empty_like(ndt0)
@@ -64,6 +142,11 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
     z_buf = torch.empty_like(z0) if fused else None
     local = torch.empty((M, n_blocks, W, T), dtype=torch.float32,
                         device=dev) if fused else None
+    plan = (0, 0, 0, 0)
+    if kernel_variant == "cluster":
+        cluster, slots = _slots_on(D, doc_block, T, topic_index is not None,
+                                   dev)
+        plan = (slots.data_ptr(), cluster, slots.shape[3], slots.shape[4])
     ptr = lambda t: 0 if t is None else t.data_ptr()
     launch = build.bind("slda_train", "slda_train_sweeps_launch", _ARGS)
     with build.on_device(dev):
@@ -73,8 +156,9 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
             int(n_sweeps), int(N if ctr_stride is None else ctr_stride),
             float(alpha), float(beta), float(W * beta), float(rho),
             int(supervised), int(product_form), *index,
-            build.stream_of(dev))
+            VARIANTS.index(kernel_variant), *plan, build.stream_of(dev))
     build.check_launch("slda_train", rc)
     launches += 1
+    variant_launches[kernel_variant] += 1
     sparse_launches += topic_index is not None
     return z_out, ndt_out

@@ -244,6 +244,25 @@ def test_train_cuda_wrapper_checks_operands():
         slda_train.slda_train_sweeps_cuda(*t, **_TRAIN_KW)
 
 
+@pytest.mark.parametrize("variant", ["cluster", "block"])
+def test_train_kernel_variants_refuse_cpu_tensors(variant):
+    """Either B3 variant launches its kernel or raises: on CPU tensors it
+    tries to build for a card there is none of, counts no launch, and
+    runs no plain version in its place."""
+    a = _train_args([torch.from_numpy(x) for x in
+                     _gibbs_inputs(0, 2, 5, 8, 20, 6)])
+    n = slda_train.launches
+    by_variant = dict(slda_train.variant_launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        slda_train.slda_train_sweeps_cuda(*a, kernel_variant=variant,
+                                          **_TRAIN_KW)
+    with pytest.raises(ValueError, match="no warp variant"):
+        slda_train.slda_train_sweeps_cuda(*a, kernel_variant="warp",
+                                          **_TRAIN_KW)
+    assert slda_train.launches == n
+    assert slda_train.variant_launches == by_variant
+
+
 def test_ops_refuse_other_devices():
     a = [torch.from_numpy(x).to("meta") for x in
          _gibbs_inputs(0, 1, 4, 8, 20, 6)]

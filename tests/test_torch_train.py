@@ -386,3 +386,91 @@ def test_fused_naive_combination_is_worse(fused_mses):
     assert port["naive"] > port["simple"]
     assert port["naive"] > port["weighted"]
 
+
+
+# ------------------------------------------ kernel B3's slot assignment
+
+@pytest.mark.parametrize("D,doc_block,T,sparse", [
+    (750, 128, 16, False),     # the MD&A slice: 5 full blocks and 110
+    (256, 128, 128, False),    # T = 128: a warp a document
+    (300, 128, 16, False),     # a short last block of 44
+    (40, 40, 16, False),       # D below the configured doc block
+    (40, 128, 16, False),      # ... and the block wider than D
+    (750, 128, 16, True),      # the sparse draw walks a warp a document
+    (750, 128, 17, False),     # T just past a half-warp
+    (1000, 512, 16, False),    # a block wider than a cluster's groups
+])
+def test_slot_plan_takes_each_document_once_in_its_block(D, doc_block, T,
+                                                         sparse):
+    """Every document of a chain is walked by exactly one group of lanes,
+    in a CTA of its own block's cluster; clusters have at most 8 CTAs;
+    two documents a warp only for the dense draw at T <= 16; and no group
+    walks more documents than the block's width needs."""
+    from repro_torch.kernels import slda_train
+    cluster, slots = slda_train.slot_plan(D, doc_block, T, sparse=sparse)
+    groups = 2 if T <= 16 and not sparse else 1
+    n_blocks = -(-D // doc_block)
+    width = min(doc_block, D)
+    assert 1 <= cluster <= slda_train.MAX_CLUSTER
+    assert tuple(slots.shape[:4]) == (n_blocks, cluster, slda_train.WARPS,
+                                      groups)
+    assert slots.dtype == torch.int32
+    per_slot = slots.shape[4]
+    assert per_slot == -(-width // (cluster * slda_train.WARPS * groups))
+    if width <= slda_train.MAX_CLUSTER * slda_train.WARPS * groups:
+        assert per_slot == 1               # one document a group
+    taken = slots[slots >= 0]
+    assert sorted(taken.tolist()) == list(range(D))
+    for b in range(n_blocks):
+        docs = slots[b][slots[b] >= 0]
+        assert ((docs // doc_block) == b).all()
+
+
+def test_slot_plan_fills_first_groups_first():
+    """A short block gives every CTA's warps their first document before
+    any second group starts, so the walks stay one document long."""
+    from repro_torch.kernels import slda_train
+    cluster, slots = slda_train.slot_plan(300, 128, 16)
+    last = slots[-1]                       # 44 documents over 4 CTAs
+    assert int((last[..., 0, :] >= 0).sum()) == 44
+    assert int((last[..., 1, :] >= 0).sum()) == 0
+
+
+@pytest.mark.parametrize("variant", ["cluster", "block"])
+@pytest.mark.parametrize("D,doc_block,T,sparse", [
+    (750, 128, 16, False),     # the MD&A slice
+    (256, 128, 128, False),    # T = 128: 16 warps a block CTA
+    (300, 128, 16, False),     # a short last block
+    (40, 128, 16, False),      # the block wider than D
+    (750, 128, 16, True),      # the sparse draw
+])
+def test_walks_take_each_document_once_in_its_block(variant, D, doc_block,
+                                                    T, sparse):
+    """Each variant's walks hold every document of a chain once, each walk
+    inside one doc block; the cluster variant's are its slot plan's."""
+    from repro_torch.kernels import slda_train
+    walks = slda_train.walks(D, doc_block, T, variant, sparse=sparse)
+    assert walks.dtype == torch.int64 and walks.dim() == 2
+    assert sorted(walks[walks >= 0].tolist()) == list(range(D))
+    for walk in walks:
+        docs = walk[walk >= 0]
+        assert (docs // doc_block == docs[:1] // doc_block).all()
+    if variant == "cluster":
+        _, slots = slda_train.slot_plan(D, doc_block, T, sparse=sparse)
+        assert torch.equal(walks, slots.reshape(-1, slots.shape[-1]).long())
+
+
+def test_block_walks_follow_the_launchers_warps():
+    """The block variant's warp w walks w, w + warps, ... of its block,
+    with 32 warps a CTA up to T = 64 and 16 past it; the slice's longest
+    walk is 4 documents there and 1 on the cluster variant."""
+    from repro_torch.kernels import slda_train
+    walks = slda_train.walks(750, 128, 16, "block")
+    assert walks.shape == (6 * 32, 4)
+    assert walks[3].tolist() == [3, 35, 67, 99]
+    assert walks[32 + 1].tolist() == [129, 161, 193, 225]
+    assert slda_train.walks(256, 128, 65, "block").shape == (2 * 16, 8)
+    cluster = slda_train.walks(750, 128, 16, "cluster")
+    assert int((cluster >= 0).sum(-1).max()) == 1
+    with pytest.raises(ValueError, match="no warp variant"):
+        slda_train.walks(750, 128, 16, "warp")
