@@ -10,19 +10,32 @@ from the sources in the checkout, and exits non-zero if any phase fails
 Phases, one JSON line each:
 
   env            card, power limit, torch and CUDA versions; TF32 off
-  build          nvcc build of every kernel source, its time and ptxas use,
-                 and the count of HGMMA (wgmma) instructions in B5's
-                 machine code and of HMMA or HGMMA in B6's (there must be
-                 some)
+  build          nvcc build of every kernel source, its time and ptxas use
+                 (B1's and B2's kernels' registers and spills apart), and
+                 the count of HGMMA (wgmma) instructions in B5's machine
+                 code and of HMMA or HGMMA in B6's (there must be some)
   counter_hash   the kernels' counter hash bit-equal to the torch version
   B1 / B2 / B3   each kernel against its plain version at the slice's
                  shapes and at T = 128 (B3 also in log form): draw
                  mismatch over real tokens, exact counts, times, bound;
-                 B3 runs its cluster variant and, on the same inputs, the
-                 block variant it replaced (`replaced_ms`; their draws
-                 must be equal), with the cluster size and the critical
-                 path (real tokens of the longest walk × sweeps, and ns a
-                 step) of both
+                 each row names the variant the main path runs (B1 lane
+                 or warp, B2 half_warp or warp, B3 cluster) and runs, on
+                 the same inputs, the variant it replaced (B1 and B2
+                 warp, B3 block: `replaced_ms`; their draws and counts
+                 must be equal), with the critical path (real tokens of
+                 the longest walk × sweeps, and ns a step) of both, B1
+                 the lane layout's time, B3 the cluster size; B1 and B2
+                 also with the profiler's device time of both variants
+                 (`device_us`, `replaced_device_us`) and at the slice's
+                 chain 0 alone (`slice_one_chain`: a quarter of the
+                 warps, so its step against the slice's tells latency
+                 from issue); B1 also at one chain over the test
+                 documents (`test_one_chain`, Nonparallel's and Naive's
+                 predict launch)
+  B3_parting     B3 against its plain version after 1, 2, .. 8 sweeps at
+                 T = 128 on four fresh inputs: mismatched tokens after
+                 each (one draw at a rounding edge spreads through its doc
+                 block in later sweeps); one sweep within the bound
   B1_sparse / B2_sparse / B3_sparse
                  each kernel's sparse-draw instantiation (kernel B4
                  inside it) against its plain version, at the slice's
@@ -30,16 +43,21 @@ Phases, one JSON line each:
                  and at T = 128 with cap 32: draw mismatch, exact counts,
                  the share of real tokens that took stage 2 (from the
                  plain version), the sparse and the dense kernel's times
-                 on the same inputs, plain time, bound (B3_sparse also as
-                 B3: the replaced kernel, cluster, critical path)
+                 on the same inputs, plain time, bound, and as the dense
+                 rows the variant, the replaced kernel (B1 and B2 draw
+                 sparse on the warp variant, their own replaced kernel)
+                 and the critical path
   B4             the sparse draw's device function alone against its
                  plain version, on the rows of one training sweep
   small_shapes   B1, B2 and B3, dense and sparse, against their plain
                  versions at small shapes over T = 3, 16, 40, 128 and 256
-                 (T off the 16- and 32-topic grids, K = 1, 2, 4, 8)
+                 (T off the 16- and 32-topic grids, K = 1, 2, 4, 8); where
+                 B1's or B2's main-path variant is not the warp one, its
+                 draws and counts against the warp variant's
   end_to_end     the paper's four algorithms at the slice's configuration
                  (`repro_torch.fig6_mdna`) through their entry points,
-                 with the kernels' launch counts over that run
+                 with the kernels' launch counts over that run, B1's and
+                 B2's by variant (every dense launch lane / half_warp)
   end_to_end_fused  the same at sweeps_per_launch = 8 (kernel B3, every
                  launch on its cluster variant, counted by variant)
   end_to_end_sparse  the same with sampler_mode="sparse", at
@@ -222,11 +240,20 @@ def sparse_draw_ops(t: int, cap: int, stage2_share: float) -> float:
 
 def longest_walk(real_per_doc, walks) -> float:
     """Real tokens of the longest walk, over the chains: the dependent
-    token steps of one sweep on B3's critical path."""
+    token steps of one sweep on a kernel's critical path.  real_per_doc
+    [M, D] (or [1, D] for a corpus the chains share); walks [n, per], the
+    documents each group of lanes draws in turn, -1 where none."""
     import torch
     idx = walks.clamp(min=0).to(real_per_doc.device)
     tok = real_per_doc[:, idx] * (walks >= 0).to(real_per_doc.device)
     return float(tok.sum(-1).max())
+
+
+def own_walks(D):
+    """B1's and B2's walks in either variant: each document alone (a lane,
+    a half-warp or a warp draws it and no other)."""
+    import torch
+    return torch.arange(D)[:, None]
 
 
 def variant_of(counts, call):
@@ -240,29 +267,62 @@ def variant_of(counts, call):
 
 
 def replaced_agrees(got, replaced, mask) -> bool:
-    """B3's cluster variant drew what the block variant draws: every real
-    token's topic and every count equal."""
+    """A redesigned variant drew what the variant it replaced draws on the
+    same inputs: every real token's topic and every count equal (got and
+    replaced (z, ndt); mask broadcasts against z)."""
     import torch
     (z, ndt), (z_r, ndt_r) = got, replaced
     return bool(((z == z_r) | (mask <= 0)).all() and torch.equal(ndt, ndt_r))
 
 
-def critical_path(mask, D, doc_block, T, sweeps, ms, replaced_ms,
-                  sparse=False):
-    """B3's critical path on these inputs (mask [M, D, N]), for the
-    cluster variant and the block variant it replaced: the dependent token
-    steps of the longest walk times the sweeps, and the launch's time a
-    step in ns."""
-    from repro_torch.kernels import slda_train
-    real = mask.sum(-1)
-    out = {"cluster": slda_train.slot_plan(D, doc_block, T,
-                                           sparse=sparse)[0]}
-    for key, variant, t_ms in (("", "cluster", ms),
-                               ("replaced_", "block", replaced_ms)):
-        steps = longest_walk(real, slda_train.walks(
-            D, doc_block, T, variant, sparse=sparse)) * sweeps
+def critical_path(real_per_doc, sweeps, timed):
+    """The critical path on these inputs of each variant in `timed`, a
+    list of (key prefix, walks, ms): the dependent token steps of its
+    longest walk times the sweeps, and the launch's time a step in ns."""
+    out = {}
+    for key, walks, t_ms in timed:
+        steps = longest_walk(real_per_doc, walks) * sweeps
         out[f"{key}critical_path_steps"] = steps
         out[f"{key}ns_per_step"] = t_ms * 1e6 / steps
+    return out
+
+
+def b3_critical_path(mask, D, doc_block, T, sweeps, ms, replaced_ms,
+                     sparse=False):
+    """B3's cluster size and critical path on these inputs (mask [M, D,
+    N]), for the cluster variant and the block variant it replaced."""
+    from repro_torch.kernels import slda_train
+    return {"cluster": slda_train.slot_plan(D, doc_block, T,
+                                            sparse=sparse)[0],
+            **critical_path(mask.sum(-1), sweeps, [
+                (key, slda_train.walks(D, doc_block, T, variant,
+                                       sparse=sparse), t_ms)
+                for key, variant, t_ms in (("", "cluster", ms),
+                                           ("replaced_", "block",
+                                            replaced_ms))])}
+
+
+def ptxas_use(log, kernels):
+    """Registers and spill bytes of each entry function whose (mangled)
+    name holds one of `kernels`, read from nvcc's -Xptxas -v log:
+    {name: {"registers", "spill_stores", "spill_loads"}}."""
+    import re
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m[1] if any(k in m[1] for k in kernels) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m[1]),
+                                            spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out.setdefault(name, {})["registers"] = int(m[1])
     return out
 
 
@@ -292,9 +352,11 @@ def device_us(fn, n=10, tries=3):
     torch.profiler over n calls.  A trace that lost launches (the
     profiler now and then returns none, or some: a kernel seen a number
     of times that n does not divide) is taken again, up to `tries`
-    times.  If none is whole and `fn` launches one kernel, whose last
-    trace kept at least half its launches, the mean of those it kept (B6's
-    traces keep 8 of 10 at times); else (None, None)."""
+    times.  If none is whole, the last trace is read as k calls, k the
+    fewest launches of any of its kernels, when k is at least n/2: each
+    kernel's mean a launch times its launches a call (its launches over
+    k, rounded) (B6's traces keep 8 of 10 at times, and B2's one of its
+    two kernels 9); else (None, None)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -312,8 +374,10 @@ def device_us(fn, n=10, tries=3):
         kernels = [(c, t) for c, t in kernels if t > 0]
         if kernels and all(c % n == 0 for c, _ in kernels):
             return sum(t for _, t in kernels) / n, f"{n}/{n}"
-    if len(kernels) == 1 and 2 * kernels[0][0] >= n:
-        return kernels[0][1] / kernels[0][0], f"{kernels[0][0]}/{n}"
+    k = min((c for c, _ in kernels), default=0)
+    if k and 2 * k >= n:
+        return (sum(t / c * max(1, round(c / k)) for c, t in kernels),
+                f"{k}/{n}")
     return None, None
 
 
@@ -338,12 +402,15 @@ def host_us(fn, n=50):
 
 
 def reset_launches():
-    from repro_torch.kernels import flash_attention, slda_train, ssd_scan
+    from repro_torch.kernels import (flash_attention, slda_gibbs,
+                                     slda_predict, slda_train, ssd_scan)
     from repro_torch.route_parity import kernel_modules
     for mod in kernel_modules().values():
         mod.launches = 0
     for counts in (flash_attention.variant_launches,
-                   ssd_scan.variant_launches, slda_train.variant_launches):
+                   ssd_scan.variant_launches, slda_train.variant_launches,
+                   slda_predict.variant_launches,
+                   slda_gibbs.variant_launches):
         for v in counts:
             counts[v] = 0
 
@@ -930,6 +997,11 @@ def main() -> int:
     tc6 = sum("HMMA" in ln or "HGMMA" in ln for ln in sass6.splitlines())
     emit({"phase": "build", "seconds": build.build_info["seconds"],
           "directory": build.build_info["directory"], "ptxas": ptxas,
+          # B1's and B2's variants (the warp ones at K = 1, T <= 32)
+          "b1_b2_ptxas": ptxas_use(
+              build.build_info["log"],
+              ("predict_lane", "gibbs_half", "gibbs_log_table",
+               "predict_sweeps_kernelILi1E", "gibbs_sweep_kernelILi1E")),
           "b5_hgmma_instructions": hgmma,
           "b6_tensor_core_instructions": tc6})
     check(hgmma > 0, "B5: no HGMMA instruction in its machine code")
@@ -976,91 +1048,158 @@ def main() -> int:
     M, cfg = fig6_mdna.M, fig6_mdna.CFG
     rows = {}
 
-    def rand_table(m, t):
+    def rand_table(m, t, g=gen):
         """A peaked random topic-word table [m, t, W], rows summing to 1."""
-        p = torch.rand((m, t, W), device=dev, generator=gen) ** 8 + 1e-6
+        p = torch.rand((m, t, W), device=dev, generator=g) ** 8 + 1e-6
         return p / p.sum(-1, keepdim=True)
+
+    # the one-chain rows draw from a generator of their own, so that every
+    # other row keeps the inputs it had before they were added
+    gen1 = torch.Generator(device=dev).manual_seed(args.seed + 1)
+
+    def against_warp(kind, run, got, mask, reps, ms):
+        """B1's or B2's replaced (warp) kernel on the row's inputs:
+        `run(variant)` returns (z, ndt) as `got` holds them.  Its time and
+        whether its draws and counts equal `got`; a row whose main-path
+        variant is the warp one is its own replaced kernel."""
+        if kind == "warp":
+            return {"replaced_ms": ms, "replaced_draws_equal": True}
+        same = replaced_agrees(got, run("warp"), mask)
+        return {"replaced_ms": event_ms(lambda: run("warp"), reps),
+                "replaced_draws_equal": same}
 
     # ---- B1: prediction, shared corpus (the weighted pass: test + train)
     both = torch.cat([test.tokens, train.tokens]), \
         torch.cat([test.mask, train.mask])
-    for label, t, d in (("slice", T0, both[0].shape[0]), ("T128", 128, 256)):
+    full = dict(alpha=cfg.alpha, n_burnin=cfg.n_pred_burnin,
+                n_samples=cfg.n_pred_samples)
+    sweeps_b1 = cfg.n_pred_burnin + cfg.n_pred_samples
+    # slice_one_chain: the slice's chain 0 alone, a quarter of the warps,
+    # so a step's time with (slice) and without (one chain) other warps on
+    # its scheduler tells issue from latency; test_one_chain: one chain
+    # over the test documents, the launch of Nonparallel's and Naive's
+    # predict, where the warp variant has few warps
+    for label, t, d, chains in (("slice", T0, both[0].shape[0], M),
+                                ("slice_one_chain", T0, both[0].shape[0], 1),
+                                ("test_one_chain", T0, test.n_docs, 1),
+                                ("T128", 128, 256, M)):
         tokens, mask = both[0][:d].contiguous(), both[1][:d].contiguous()
-        phi_t = rand_table(M, t).transpose(1, 2).contiguous()
-        z0 = torch.randint(0, t, (M,) + tuple(tokens.shape), **int32)
-        sd = torch.randint(0, 2 ** 31 - 1, (M, d), **int32)
+        rg = gen if chains == M else gen1
+        ri = dict(int32, generator=rg)
+        phi_t = rand_table(M, t, rg).transpose(1, 2).contiguous()
+        z0 = torch.randint(0, t, (M,) + tuple(tokens.shape), **ri)
+        sd = torch.randint(0, 2 ** 31 - 1, (M, d), **ri)
         ndt0, _, _ = counts_from_assignments(
             tokens.expand(M, -1, -1), mask.expand(M, -1, -1), z0, t, W)
-        real = float(mask.sum()) * M
+        phi_t, z0, sd, ndt0 = (x[:chains].contiguous()
+                               for x in (phi_t, z0, sd, ndt0))
+        real = float(mask.sum()) * chains
+        a = (tokens, mask, sd, z0, ndt0, phi_t)
         one = dict(alpha=cfg.alpha, n_burnin=0, n_samples=1)
-        avg_k, z_k = slda_predict.slda_predict_sweeps_cuda(
-            tokens, mask, sd, z0, ndt0, phi_t, **one)
-        avg_p, z_p = ref.slda_predict_sweeps_chains(
-            tokens, mask, sd, z0, ndt0, phi_t, **one)
+
+        def b1_run(v, kw):
+            avg, z = slda_predict.slda_predict_sweeps_cuda(
+                *a, kernel_variant=v, **kw)
+            return z, avg
+        (avg_k, z_k), kind = variant_of(
+            slda_predict.variant_launches,
+            lambda: slda_predict.slda_predict_sweeps_cuda(*a, **one))
+        avg_p, z_p = ref.slda_predict_sweeps_chains(*a, **one)
         mis = float(((z_k != z_p) & (mask > 0)).sum()) / real
         err = float((avg_k - avg_p).abs().max())
         recount, _, _ = counts_from_assignments(
-            tokens.expand(M, -1, -1), mask.expand(M, -1, -1), z_k, t, W)
+            tokens.expand(chains, -1, -1), mask.expand(chains, -1, -1), z_k,
+            t, W)
         exact = bool(torch.equal(recount, avg_k))
-        full = dict(alpha=cfg.alpha, n_burnin=cfg.n_pred_burnin,
-                    n_samples=cfg.n_pred_samples)
-        avg_f, _ = slda_predict.slda_predict_sweeps_cuda(
-            tokens, mask, sd, z0, ndt0, phi_t, **full)
-        lens = mask.sum(-1).expand(M, -1)
+        avg_f, z_f = slda_predict.slda_predict_sweeps_cuda(*a, **full)
+        lens = mask.sum(-1).expand(chains, -1)
         row_err = float(((avg_f.sum(-1) - lens).abs()
                          / lens.clamp(min=1)).max())
         ms = event_ms(lambda: slda_predict.slda_predict_sweeps_cuda(
-            tokens, mask, sd, z0, ndt0, phi_t, **full), 5)
+            *a, **full), 5)
         plain = event_ms(lambda: ref.slda_predict_sweeps_chains(
-            tokens, mask, sd, z0, ndt0, phi_t, **full), 1)
-        steps = real * (cfg.n_pred_burnin + cfg.n_pred_samples)
+            *a, **full), 1)
+        # the replaced kernel: one sweep and all of them, draws and counts
+        replaced = against_warp(kind, lambda v: b1_run(v, full),
+                                (z_f, avg_f), mask, 5, ms)
+        if kind != "warp":
+            replaced["replaced_draws_equal"] &= replaced_agrees(
+                (z_k, avg_k), b1_run("warp", one), mask)
+        steps = real * sweeps_b1
         b_ms, b_by = bound_ms([tokens, mask, sd, z0, ndt0, phi_t, avg_f,
                                z_k], OPS_PER_TOPIC["B1"] * t * steps)
-        row = {"phase": "B1", "shape": label, "M": M, "D": d,
-               "N": tokens.shape[1], "T": t, "W": W,
+        row = {"phase": "B1", "shape": label, "M": chains, "D": d,
+               "N": tokens.shape[1], "T": t, "W": W, "variant": kind,
                "real_tokens": real, "draw_mismatch": mis,
                "one_sweep_max_abs_err": err, "counts_exact": exact,
-               "row_sum_rel_err": row_err, "ms": ms, "plain_ms": plain,
-               "bound_ms": b_ms, "bound_by": b_by}
+               "row_sum_rel_err": row_err, "ms": ms, **replaced,
+               **device_fields("device_us", lambda: b1_run(None, full)),
+               **device_fields("replaced_device_us",
+                               lambda: b1_run("warp", full)),
+               "layout_ms": event_ms(lambda: slda_predict.lane_layout(
+                   tokens, mask), 20) if kind == "lane" else None,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+               **critical_path(mask.sum(-1)[None], sweeps_b1, [
+                   ("", own_walks(d), ms),
+                   ("replaced_", own_walks(d), replaced["replaced_ms"])])}
         emit(row)
         rows.setdefault("B1", row)
+        check(row["replaced_draws_equal"],
+              f"B1 {label}: draws differ from the replaced kernel's")
         check(mis <= MISMATCH_MAX, f"B1 {label}: draw mismatch {mis}")
         check(exact, f"B1 {label}: ndt differs from counts of z")
         check(row_err <= 1e-4, f"B1 {label}: ndt_avg rows off by {row_err}")
 
     # ---- B2: one training sweep, chain-sharded corpus
-    for label, t, docs in (("slice", T0, train.n_docs), ("T128", 128, 1024)):
+    for label, t, docs, chains in (("slice", T0, train.n_docs, M),
+                                   ("slice_one_chain", T0, train.n_docs, 1),
+                                   ("T128", 128, 1024, M)):
         sh = partition(train.map(lambda x: x[:docs]), M)
         d = sh.n_docs
-        z = torch.randint(0, t, tuple(sh.tokens.shape), **int32)
+        rg = gen if chains == M else gen1
+        z = torch.randint(0, t, tuple(sh.tokens.shape),
+                          **dict(int32, generator=rg))
         ndt, ntw, nt = counts_from_assignments(sh.tokens, sh.mask, z, t, W)
         ntw_t = ntw.transpose(1, 2).contiguous()
-        eta = torch.randn((M, t), device=dev, generator=gen) * 2.0
-        u = torch.rand(tuple(sh.tokens.shape), device=dev, generator=gen)
+        eta = torch.randn((M, t), device=dev, generator=rg) * 2.0
+        u = torch.rand(tuple(sh.tokens.shape), device=dev, generator=rg)
         inv_len = 1.0 / sh.mask.sum(-1).clamp(min=1.0)
-        a = (sh.tokens, sh.mask, u, z, ndt, sh.y, inv_len, ntw_t, nt, eta)
+        a = tuple(x[:chains].contiguous() for x in (
+            sh.tokens, sh.mask, u, z, ndt, sh.y, inv_len, ntw_t, nt, eta))
+        tok_c, mask_c = a[0], a[1]
         kw = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho,
                   supervised=True)
-        z_k, ndt_k = slda_gibbs.slda_gibbs_sweep_cuda(*a, **kw)
+        (z_k, ndt_k), kind = variant_of(
+            slda_gibbs.variant_launches,
+            lambda: slda_gibbs.slda_gibbs_sweep_cuda(*a, **kw))
         z_p, ndt_p = ref.ref_slda_gibbs_sweep_chains(*a, **kw)
-        real = float(sh.mask.sum())
-        mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
+        real = float(mask_c.sum())
+        mis = float(((z_k != z_p) & (mask_c > 0)).sum()) / real
         err = float((ndt_k - ndt_p).abs().max())
-        recount, _, _ = counts_from_assignments(sh.tokens, sh.mask, z_k, t,
-                                                W)
+        recount, _, _ = counts_from_assignments(tok_c, mask_c, z_k, t, W)
         exact = bool(torch.equal(recount, ndt_k))
         ms = event_ms(lambda: slda_gibbs.slda_gibbs_sweep_cuda(*a, **kw), 20)
         plain = event_ms(lambda: ref.ref_slda_gibbs_sweep_chains(*a, **kw),
                          2)
+        run = lambda v=None: slda_gibbs.slda_gibbs_sweep_cuda(  # noqa: E731
+            *a, kernel_variant=v, **kw)
+        replaced = against_warp(kind, run, (z_k, ndt_k), mask_c, 20, ms)
         b_ms, b_by = bound_ms(list(a) + [z_k, ndt_k],
                               OPS_PER_TOPIC["B2"] * t * real)
-        row = {"phase": "B2", "shape": label, "M": M, "D": d,
-               "N": sh.max_len, "T": t, "W": W, "real_tokens": real,
-               "draw_mismatch": mis, "max_abs_err": err,
-               "counts_exact": exact, "ms": ms, "plain_ms": plain,
-               "bound_ms": b_ms, "bound_by": b_by}
+        row = {"phase": "B2", "shape": label, "M": chains, "D": d,
+               "N": sh.max_len, "T": t, "W": W, "variant": kind,
+               "real_tokens": real, "draw_mismatch": mis,
+               "max_abs_err": err, "counts_exact": exact, "ms": ms,
+               **replaced, **device_fields("device_us", run),
+               **device_fields("replaced_device_us", lambda: run("warp")),
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+               **critical_path(mask_c.sum(-1), 1, [
+                   ("", own_walks(d), ms),
+                   ("replaced_", own_walks(d), replaced["replaced_ms"])])}
         emit(row)
         rows.setdefault("B2", row)
+        check(row["replaced_draws_equal"],
+              f"B2 {label}: draws differ from the replaced kernel's")
         check(mis <= MISMATCH_MAX, f"B2 {label}: draw mismatch {mis}")
         check(exact, f"B2 {label}: ndt differs from counts of z")
 
@@ -1122,13 +1261,52 @@ def main() -> int:
                "ms": ms, "replaced_ms": replaced_ms, "plain_ms": plain,
                "bound_ms": b_ms, "bound_by": b_by,
                "replaced_draws_equal": same,
-               **critical_path(sh.mask, d, db, t, sweeps, ms, replaced_ms)}
+               **b3_critical_path(sh.mask, d, db, t, sweeps, ms,
+                                    replaced_ms)}
         emit(row)
         rows.setdefault("B3", row)
         check(same, f"B3 {label}: draws differ from the replaced kernel's")
         check(mis <= MISMATCH_MAX, f"B3 {label}: draw mismatch {mis}")
         check(exact, f"B3 {label}: ndt differs from counts of z")
         check(refresh_exact, f"B3 {label}: count refresh differs")
+
+    # ---- B3_parting: B3 against its plain version after 1 to 8 sweeps,
+    # at T = 128 on fresh inputs (a generator of their own).  A draw may
+    # differ where a uniform lies within rounding of a CDF boundary; in a
+    # fused launch that token's document, and through the doc block's
+    # shared table its block, then walk on from other states, so one such
+    # draw shows as a share of the tokens some sweeps later.  Gated as the
+    # rule for one sweep on identical inputs reads: after one sweep the
+    # mismatch stays within MISMATCH_MAX.
+    gp = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    sh = partition(train.map(lambda x: x[:1024]), M)
+    db = build_plan(sh, cfg).train_doc_block(sh.n_docs)
+    inv_len = 1.0 / sh.mask.sum(-1).clamp(min=1.0)
+    real = float(sh.mask.sum())
+    parting = []
+    for _ in range(4):
+        z = torch.randint(0, 128, tuple(sh.tokens.shape),
+                          **dict(int32, generator=gp))
+        ndt, ntw, nt = counts_from_assignments(sh.tokens, sh.mask, z, 128, W)
+        eta = torch.randn((M, 128), device=dev, generator=gp) * 2.0
+        sd = torch.randint(0, 2 ** 31 - 1, (M, sh.n_docs),
+                           **dict(int32, generator=gp))
+        a = (sh.tokens, sh.mask, sd, z, ndt, sh.y, inv_len,
+             ntw.transpose(1, 2).contiguous(), nt, eta)
+        parted = []
+        for k in range(1, 9):
+            kw = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho,
+                      n_sweeps=k, doc_block=db, supervised=True,
+                      product_form=True)
+            z_k, _ = slda_train.slda_train_sweeps_cuda(*a, **kw)
+            z_p, _ = ref.slda_train_sweeps_chains(*a, **kw)
+            parted.append(int(((z_k != z_p) & (sh.mask > 0)).sum()))
+        parting.append(parted)
+    emit({"phase": "B3_parting", "T": 128, "M": M, "D": sh.n_docs,
+          "doc_block": db, "real_tokens": real,
+          "mismatched_tokens_after_1_to_8_sweeps": parting})
+    check(all(r[0] / real <= MISMATCH_MAX for r in parting),
+          f"B3_parting: one sweep parts beyond the bound {parting}")
 
     # ---- the sparse draw (kernel B4) inside B1 / B2 / B3.  Each row runs
     # the kernel's sparse instantiation and its plain version on identical
@@ -1161,8 +1339,10 @@ def main() -> int:
         real = float(mask.sum()) * M
         a = (tokens, mask, sd, z0, ndt0, phi_t)
         one = dict(alpha=cfg.alpha, n_burnin=0, n_samples=1)
-        avg_k, z_k = slda_predict.slda_predict_sweeps_cuda(
-            *a, topic_index=index, **one)
+        (avg_k, z_k), kind = variant_of(
+            slda_predict.variant_launches,
+            lambda: slda_predict.slda_predict_sweeps_cuda(
+                *a, topic_index=index, **one))
         (avg_p, z_p), share = tallied(lambda: ref.slda_predict_sweeps_chains(
             *a, topic_index=index, **one))
         mis = float(((z_k != z_p) & (mask > 0)).sum()) / real
@@ -1184,13 +1364,19 @@ def main() -> int:
             list(a) + list(index) + [avg_k, z_k],
             ((OPS_PER_TOPIC["B1"] - DENSE_DRAW_OPS) * t
              + sparse_draw_ops(t, k_cap, share)) * steps)
+        replaced = against_warp(kind, None, None, mask, 5, ms)
         row = {"phase": "B1_sparse", "shape": label, "M": M, "D": d,
                "N": tokens.shape[1], "T": t, "W": W, "cap": k_cap,
-               "real_tokens": real, "draw_mismatch": mis,
+               "variant": kind, "real_tokens": real, "draw_mismatch": mis,
                "one_sweep_max_abs_err": err, "counts_exact": exact,
-               "stage2_share": share, "ms": ms, "dense_ms": dense_ms,
-               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+               "stage2_share": share, "ms": ms, **replaced,
+               "dense_ms": dense_ms, "plain_ms": plain, "bound_ms": b_ms,
+               "bound_by": b_by,
+               **critical_path(mask.sum(-1)[None], sweeps_b1, [
+                   ("", own_walks(d), ms),
+                   ("replaced_", own_walks(d), replaced["replaced_ms"])])}
         emit(row)
+        check(kind == "warp", f"B1_sparse {label}: ran {kind}")
         check(mis <= MISMATCH_MAX, f"B1_sparse {label}: draw mismatch {mis}")
         check(exact, f"B1_sparse {label}: ndt differs from counts of z")
 
@@ -1208,8 +1394,10 @@ def main() -> int:
         a = (sh.tokens, sh.mask, u, z, ndt, sh.y, inv_len, ntw_t, nt, eta)
         kw = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho,
                   supervised=True)
-        z_k, ndt_k = slda_gibbs.slda_gibbs_sweep_cuda(
-            *a, topic_index=index, **kw)
+        (z_k, ndt_k), kind = variant_of(
+            slda_gibbs.variant_launches,
+            lambda: slda_gibbs.slda_gibbs_sweep_cuda(
+                *a, topic_index=index, **kw))
         (z_p, ndt_p), share = tallied(lambda: ref.ref_slda_gibbs_sweep_chains(
             *a, topic_index=index, **kw))
         real = float(sh.mask.sum())
@@ -1229,13 +1417,19 @@ def main() -> int:
             list(a) + list(index) + [z_k, ndt_k],
             ((OPS_PER_TOPIC["B2"] - DENSE_DRAW_OPS) * t
              + sparse_draw_ops(t, k_cap, share)) * real)
+        replaced = against_warp(kind, None, None, sh.mask, 20, ms)
         row = {"phase": "B2_sparse", "shape": label, "M": M, "D": d,
                "N": sh.max_len, "T": t, "W": W, "cap": k_cap,
-               "real_tokens": real, "draw_mismatch": mis,
+               "variant": kind, "real_tokens": real, "draw_mismatch": mis,
                "max_abs_err": err, "counts_exact": exact,
-               "stage2_share": share, "ms": ms, "dense_ms": dense_ms,
-               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+               "stage2_share": share, "ms": ms, **replaced,
+               "dense_ms": dense_ms, "plain_ms": plain, "bound_ms": b_ms,
+               "bound_by": b_by,
+               **critical_path(sh.mask.sum(-1), 1, [
+                   ("", own_walks(d), ms),
+                   ("replaced_", own_walks(d), replaced["replaced_ms"])])}
         emit(row)
+        check(kind == "warp", f"B2_sparse {label}: ran {kind}")
         rows.setdefault("B2_sparse", row)
         check(mis <= MISMATCH_MAX, f"B2_sparse {label}: draw mismatch {mis}")
         check(exact, f"B2_sparse {label}: ndt differs from counts of z")
@@ -1300,8 +1494,8 @@ def main() -> int:
                "replaced_ms": replaced_ms, "dense_ms": dense_ms,
                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                "replaced_draws_equal": same,
-               **critical_path(sh.mask, d, db, t, 8, ms, replaced_ms,
-                               sparse=True)}
+               **b3_critical_path(sh.mask, d, db, t, 8, ms, replaced_ms,
+                                  sparse=True)}
         emit(row)
         check(same, f"B3_sparse {label}: draws differ from the replaced "
               f"kernel's")
@@ -1379,11 +1573,16 @@ def main() -> int:
             kw = dict(alpha=0.1, beta=0.01, rho=0.25, supervised=True,
                       topic_index=ti)
             a = (tok, msk, u, z, ndt, y, il, ntw_t, nt, eta)
-            z_k, ndt_k = slda_gibbs.slda_gibbs_sweep_cuda(*a, **kw)
+            (z_k, ndt_k), kind2 = variant_of(
+                slda_gibbs.variant_launches,
+                lambda: slda_gibbs.slda_gibbs_sweep_cuda(*a, **kw))
             z_p, _ = ref.ref_slda_gibbs_sweep_chains(*a, **kw)
             mis2 = float(((z_k != z_p) & (msk > 0)).sum()) / real
             rc = counts_from_assignments(tok, msk, z_k, t, w_dim)[0]
             ex2 = bool(torch.equal(rc, ndt_k))
+            same2 = kind2 == "warp" or replaced_agrees(
+                (z_k, ndt_k), slda_gibbs.slda_gibbs_sweep_cuda(
+                    *a, kernel_variant="warp", **kw), msk)
             sd = torch.randint(0, 2 ** 31 - 1, (M, d), device=dev,
                                generator=g, dtype=torch.int32)
             kw3 = dict(alpha=0.1, beta=0.01, rho=0.25, n_sweeps=4,
@@ -1405,16 +1604,25 @@ def main() -> int:
             n0 = counts_from_assignments(tok[0][None].expand(M, -1, -1), m0,
                                          z, t, w_dim)[0]
             a1 = (tok[0].contiguous(), msk[0].contiguous(), sd, z, n0, phi)
-            _, z_k = slda_predict.slda_predict_sweeps_cuda(*a1, **kw1)
+            (avg_k, z_k), kind1 = variant_of(
+                slda_predict.variant_launches,
+                lambda: slda_predict.slda_predict_sweeps_cuda(*a1, **kw1))
             _, z_p = ref.slda_predict_sweeps_chains(*a1, **kw1)
             mis1 = float(((z_k != z_p) & (m0 > 0)).sum()) / float(m0.sum())
+            same1 = kind1 == "warp" or replaced_agrees(
+                (z_k, avg_k), slda_predict.slda_predict_sweeps_cuda(
+                    *a1, kernel_variant="warp", **kw1)[::-1], m0)
             emit({"phase": "small_shapes", "T": t, "cap": cap, "D": d,
-                  "W": w_dim, "N": n, "mode": mode, "B1_mismatch": mis1,
-                  "B2_mismatch": mis2, "B2_counts_exact": ex2,
+                  "W": w_dim, "N": n, "mode": mode, "B1_variant": kind1,
+                  "B1_mismatch": mis1, "B1_replaced_draws_equal": same1,
+                  "B2_variant": kind2, "B2_mismatch": mis2,
+                  "B2_counts_exact": ex2, "B2_replaced_draws_equal": same2,
                   "B3_mismatch": mis3, "B3_counts_exact": ex3})
             check(max(mis1, mis2, mis3) <= MISMATCH_MAX,
                   f"small_shapes T={t} {mode}: draw mismatch")
             check(ex2 and ex3, f"small_shapes T={t} {mode}: counts differ")
+            check(same1 and same2, f"small_shapes T={t} {mode}: draws "
+                  f"differ from the replaced kernels'")
 
     # ---- end to end: the four algorithms through their entry points, at
     # one sweep per launch (B2) and at eight (B3), dense and sparse; each
@@ -1435,15 +1643,15 @@ def main() -> int:
                       cfg=run_cfg)                           # warm-up
         for mod in modules.values():
             mod.launches = mod.sparse_launches = 0
-        b3_variants = slda_train.variant_launches
-        for v in b3_variants:
-            b3_variants[v] = 0
+            for v in mod.variant_launches:
+                mod.variant_launches[v] = 0
         res = fig6_mdna.run(args.seed, dev, data=(train, test), cfg=run_cfg)
         torch.cuda.synchronize()
         launches = {k: mod.launches for k, mod in modules.items()}
         sparse_launches = {k: mod.sparse_launches
                            for k, mod in modules.items()}
-        variants = dict(b3_variants)
+        variants = {k: dict(mod.variant_launches)
+                    for k, mod in modules.items()}
         counted[phase, run_cfg.sweeps_per_launch] = (launches,
                                                      sparse_launches,
                                                      variants)
@@ -1452,13 +1660,19 @@ def main() -> int:
               "sampler_mode": run_cfg.sampler_mode,
               "sparse_topic_cap": min(run_cfg.sparse_topic_cap, T0),
               "launches": launches, "sparse_launches": sparse_launches,
-              "b3_variant_launches": variants, **res})
+              "variant_launches": variants, **res})
         mse = {k: v["test_mse"] for k, v in res["algorithms"].items()}
         var_y = res["var_y_test"]
         check(launches == want, f"{phase}: launch counts {launches}")
-        # every fused launch of the main path on the cluster variant
-        check(variants["cluster"] == launches["B3"],
-              f"{phase}: B3 launches by variant {variants}")
+        # every launch of the main path on its variant: B1 lane and B2
+        # half_warp for the dense draw (warp for the sparse), B3 cluster
+        is_sparse = run_cfg.sampler_mode == "sparse"
+        main_variant = {
+            "B1": slda_predict.variant(T0, is_sparse, test.max_len),
+            "B2": slda_gibbs.variant(T0, is_sparse), "B3": "cluster"}
+        check(all(variants[k][v] == launches[k]
+                  for k, v in main_variant.items()),
+              f"{phase}: launches by variant {variants}")
         want_sparse = launches if run_cfg.sampler_mode == "sparse" else \
             {k: 0 for k in launches}
         check(sparse_launches == want_sparse,
@@ -1550,8 +1764,11 @@ def main() -> int:
         "B3": counted["end_to_end_fused", 8][0]["B3"],
         "B4": sum(sum(run.values()) for run in sparse_runs),
         **lm_launches, **ssm_launches}
-    # B3's launches in that run by variant (all of them cluster, checked)
-    variants_of = {"B3": counted["end_to_end_fused", 8][2]}
+    # B1's, B2's and B3's launches in those runs by variant (all of them
+    # lane, half_warp and cluster, checked)
+    variants_of = {"B1": counted["end_to_end", 1][2]["B1"],
+                   "B2": counted["end_to_end", 1][2]["B2"],
+                   "B3": counted["end_to_end_fused", 8][2]["B3"]}
     sources = {"B1": ("slda_predict_sweeps", "slda_predict.cu",
                       "src/repro/kernels/slda_predict.py:119"),
                "B2": ("slda_gibbs_sweep", "slda_gibbs.cu",

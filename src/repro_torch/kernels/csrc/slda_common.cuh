@@ -1,9 +1,13 @@
 // Device helpers shared by the three sLDA sampler kernels (sm_90a).
 //
-// Layout shared by all three: one warp per (chain, document); lane j
-// holds topic t = j + 32k in register slot k (K = ceil(T / 32) slots,
-// T <= 256), so a row of a [W, T] table is read by the warp in coalesced
-// 32-float pieces.  Topics t >= T carry p = 0 and never win a draw.
+// The warp layout (B1's and B2's `warp` variants, B3's `block` variant,
+// and every sparse draw): a warp draws one (chain, document); lane j holds
+// topic t = j + 32k in register slot k (K = ceil(T / 32) slots, T <= 256),
+// so a row of a [W, T] table is read by the warp in coalesced 32-float
+// pieces.  Topics t >= T carry p = 0 and never win a draw.  The group
+// helpers at the end serve layouts in which a half-warp draws one
+// document (B2's `half_warp`, B3's `cluster` at T <= 16); B1's `lane`
+// variant draws a document in one lane and needs none of them.
 #pragma once
 
 #include <cmath>
@@ -172,6 +176,68 @@ __device__ __forceinline__ int draw_topic_sparse(
     kf += __popc(__ballot_sync(kFull, t < T && t / blk == jb && cf[k] < rem));
   }
   return min(jb * blk + min(kf, blk - 1), T - 1);
+}
+
+// ---------------------------------------------------------------------------
+// Groups of G lanes that draw one document (G = 16: a half-warp, two
+// documents a warp; G = 32: the whole warp), as B2's half_warp variant and
+// B3's cluster variant lay them out: topic t in group lane t mod G, slot
+// t / G.
+
+// the drawing group's max and sum (G = 16: a half-warp's butterfly)
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
+  return v;
+}
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// this group's bits of a warp ballot
+template <int G>
+__device__ __forceinline__ unsigned group_bits(unsigned v, int shift) {
+  return G == 32 ? v : (v >> shift) & 0xffffu;
+}
+
+// η of topic z (< T), from the group's registers (topic t in group lane
+// t mod G, slot t / G)
+template <int K, int G>
+__device__ __forceinline__ float eta_of(const float (&eta_r)[K], int z) {
+  float e = 0.f;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const float v = __shfl_sync(kFull, eta_r[k], z & (G - 1), G);
+    if (z / G == k) e = v;
+  }
+  return e;
+}
+
+// `draw_topic` for a half-warp group (T <= 16, one topic a lane): the
+// same left-to-right prefix sum, counted in the half's bits; the stage is
+// padded with zeros to 16 topics, so that the loop has no bound to test
+// (lane t < T still sums p_0 .. p_t from 0), and the total is lane
+// T − 1's prefix, the same chain of additions
+__device__ __forceinline__ int draw_topic_half(float p, float u, int gl,
+                                               int T, float* sp, int shift) {
+  sp[gl] = gl < T ? p : 0.f;
+  __syncwarp();
+  float c = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const float pi = sp[i];
+    if (i <= gl) c += pi;
+  }
+  __syncwarp();  // sp is rewritten by the next token
+  const float total = __shfl_sync(kFull, c, T - 1, 16);
+  const float thr = u * total;
+  return __popc(group_bits<16>(__ballot_sync(kFull, gl < T && c < thr),
+                               shift));
 }
 
 }  // namespace slda

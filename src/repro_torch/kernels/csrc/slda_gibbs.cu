@@ -13,25 +13,60 @@
 // the uniform u passed in, and add the new topic back.  Padding tokens
 // keep their topic.
 //
-// What bounds it on the card: the latency of the sequential token chain
-// (a dependent row load from the ntw table in L2, three logf and one expf
-// per topic, a warp max, the left-to-right prefix sum of B1 and a ballot
-// per token),
-// not bytes or operations.  The design is that of kernel B1: one warp per
-// (chain, document) so that every document of every chain advances at
-// once; ndt, nt, η and s in registers; tokens, mask, z and uniforms read
-// 32 positions at a time in coalesced loads and broadcast by shuffle;
-// padding tokens skipped by a warp-uniform branch.  It is built without
-// fused multiply-add contraction so that each expression rounds as the
-// plain version's separate tensor operations do.
+// What bounds it on the card: not bytes or operations but the issue
+// slots of the token steps (three logf, an expf and an IEEE divide a
+// topic, a group max, the left-to-right prefix sum, a ballot) and the
+// dependent chain of the longest document.  Two variants, named by the
+// wrapper (`slda_gibbs.variant`):
+//
+// * half_warp (the main path: the dense draw at T <= 16).  A half-warp
+//   walks one document, topic t in lane t of the half, with the max, the
+//   prefix sum and the ballot per half: B3's cluster group layout and its
+//   `draw_topic_half`, so a warp instruction serves two documents.  The
+//   logs that are functions of the launch's frozen inputs leave the
+//   token loop: a first kernel of the launch tabulates
+//   log((ntw_t[w,t] − 0) + β) and log((ntw_t[w,t] − 1) + β) per chain
+//   ([M, W, 2T] scratch, one 128-byte row a word at T = 16), each CTA
+//   log((nt_t − 0) + Wβ) and log((nt_t − 1) + Wβ) per topic, and
+//   log(k + α) for the counts k < 256.  Each is the same logf of the same
+//   float, so the same bits.  The half-warp walks its document one
+//   position a step, up to the last real token of the warp's two
+//   documents (a padding position's step changes nothing), with plain
+//   loads ahead of the chain: a position's word, mask, old topic and
+//   uniform two steps ahead, its row of logs one step ahead (a step is
+//   longer than an L2 round trip).  Lane z_old takes the "− 1" entries
+//   (a mask other than 0 or 1 computes its two logs afresh), and
+//   log(ndt_t + α) is a table read wherever ndt_t is a count below 256.
+//   η comes from registers by shuffle, not memory.  The supervised term,
+//   its divide by ρ, the max, expf and the draw stay as they were.  What
+//   bounds the step is its own dependent chain: the removal, the
+//   supervised term and its divide, the group max's four shuffles, expf,
+//   the 16-add prefix sum, the ballot and the add back; one chain (a
+//   quarter of the warps) is about as slow as four.
+//
+// * warp (the kernel the half_warp variant replaced, and the sparse draw
+//   and T > 16): one warp per (chain, document), lane j holding topic
+//   t = j + 32k; ndt, nt, η and s in registers; tokens, mask, z and
+//   uniforms read 32 positions at a time and broadcast by shuffle; three
+//   logf a topic every token, the table row and η read on the chain.
+//
+// Both draw alike, bit for bit: the same expressions in the same order,
+// the prefix strictly left to right with the total the chain over all T,
+// and z = #{t : c_t < u·total}.  Built without fused multiply-add
+// contraction so that each expression rounds as the plain version's
+// separate tensor operations do.
 //
 // SPARSE instantiations (`sampler_mode="sparse"`, the TPU kernel's branch
-// at slda_gibbs.py:74-79) draw through `draw_topic_sparse` against the
-// topic index of the sweep-frozen table (idx, vmask [M, W, cap], occm
-// [M, W, T]); everything else is the dense kernel.
+// at slda_gibbs.py:74-79) run on the warp variant and draw through
+// `draw_topic_sparse` against the topic index of the sweep-frozen table
+// (idx, vmask [M, W, cap], occm [M, W, T]); everything else is the dense
+// kernel.
 #include "slda_common.cuh"
 
 namespace slda {
+
+// ---------------------------------------------------------------------------
+// warp
 
 template <int K, bool SPARSE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -144,18 +179,214 @@ gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
   }
 }
 
+// ---------------------------------------------------------------------------
+// half_warp
+
+constexpr int kLogCounts = 256;  // log(k + α) tabulated for counts k < 256
+
+// The launch-frozen logs of the table: ltab[c, w, t] = log((x − 0) + β)
+// and ltab[c, w, T + t] = log((x − 1) + β), x = ntw_t[c, w, t].
+__global__ void gibbs_log_table_kernel(const float* __restrict__ ntw_t,
+                                       float* __restrict__ ltab,
+                                       size_t n, int T, float beta) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t r = i / T;
+  const int t = static_cast<int>(i - r * T);
+  const float x = ntw_t[i];
+  ltab[r * 2 * T + t] = logf((x - 0.f) + beta);
+  ltab[r * 2 * T + T + t] = logf((x - 1.f) + beta);
+}
+
+// Two documents a warp: half-warp grp of warp gw walks document
+// 2·gw + grp of chain blockIdx.y, topic t in its lane t (T <= 16), one
+// position a step up to the last real token of the warp's two
+// documents; a padding position's step changes nothing.
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+gibbs_half_kernel(const int* __restrict__ tokens,     // [M, D, N]
+                  const float* __restrict__ mask,     // [M, D, N]
+                  const float* __restrict__ uniforms, // [M, D, N]
+                  const int* __restrict__ z,          // [M, D, N]
+                  const float* __restrict__ ndt,      // [M, D, T]
+                  const float* __restrict__ y,        // [M, D]
+                  const float* __restrict__ inv_len,  // [M, D]
+                  const float* __restrict__ ntw_t,    // [M, W, T]
+                  const float* __restrict__ ltab,     // [M, W, 2T]
+                  const float* __restrict__ nt,       // [M, T]
+                  const float* __restrict__ eta,      // [M, T]
+                  int* __restrict__ z_out,            // [M, D, N]
+                  float* __restrict__ ndt_out,        // [M, D, T]
+                  int D, int N, int T, int W, float alpha, float beta,
+                  float w_beta, float rho, int supervised) {
+  constexpr int G = 16;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / G, gl = lane % G, shift = grp * G;
+  __shared__ float stage[kWarpsPerBlock][32];
+  __shared__ float log_nd[kLogCounts];
+  for (int k = threadIdx.x; k < kLogCounts; k += blockDim.x)
+    log_nd[k] = logf(static_cast<float>(k) + alpha);
+  __syncthreads();
+  const int d0 = (blockIdx.x * kWarpsPerBlock + warp) * 2;
+  if (d0 >= D) return;  // warp-uniform
+  const int d = d0 + grp;
+  const bool has = d < D;  // the last warp may walk one document
+  const int c = blockIdx.y;
+  float* sp = stage[warp] + G * grp;
+  const size_t row = has ? static_cast<size_t>(c) * D + d : 0;
+  const bool tv = gl < T;
+  const float* table = ntw_t + static_cast<size_t>(c) * W * T;
+  const float* logs = ltab + static_cast<size_t>(c) * W * 2 * T;
+  const int* tk = tokens + row * N;
+  const float* mk = mask + row * N;
+  const int* zk = z + row * N;
+  const float* uk = uniforms + row * N;
+  int* zo = z_out + row * N;
+
+  float eta_r[1];
+  eta_r[0] = tv ? eta[static_cast<size_t>(c) * T + gl] : 0.f;
+  const float nt_r = tv ? nt[static_cast<size_t>(c) * T + gl] : 0.f;
+  const float ln0 = logf((nt_r - 0.f) + w_beta);
+  const float ln1 = logf((nt_r - 1.f) + w_beta);
+  float nd = has && tv ? ndt[row * T + gl] : 0.f;
+  float s_part = 0.f;
+  s_part += nd * eta_r[0];
+  float st = group_sum<G>(s_part);  // running Σ_t η_t ndt_t
+  const float yd = has ? y[row] : 0.f;
+  const float il = has ? inv_len[row] : 0.f;
+
+  // the warp walks to the last real token of its two documents
+  int len = 0;
+  if (has)
+    for (int n = gl; n < N; n += G)
+      if (mk[n] > 0.f) len = n + 1;
+  const int steps = __reduce_max_sync(kFull, len);
+
+  // Position n's word, mask, old topic and uniform (the same for the
+  // group's lanes), read two positions ahead, and this lane's entries of
+  // its word's row of logs, read one position ahead: none depends on a
+  // draw, so no load is on the token chain.
+  auto at = [&](int n, int& w, float& m, int& zz, float& u) {
+    w = zz = 0;
+    m = u = 0.f;
+    if (has && n < steps) {
+      w = tk[n];
+      m = mk[n];
+      zz = zk[n];
+      u = uk[n];
+    }
+  };
+  auto logs_of = [&](int w, float m, float& l0, float& l1) {
+    l0 = l1 = 0.f;
+    if (m > 0.f && tv) {
+      const int r = w * 2 * T + gl;  // within one chain's table
+      l0 = __ldg(logs + r);          // log((x − 0) + β)
+      l1 = __ldg(logs + r + T);      // log((x − 1) + β)
+    }
+  };
+  int w_0, z_0, w_1, z_1;
+  float m_0, u_0, m_1, u_1, l0_0, l1_0;
+  at(0, w_0, m_0, z_0, u_0);
+  at(1, w_1, m_1, z_1, u_1);
+  logs_of(w_0, m_0, l0_0, l1_0);
+  for (int n = 0; n < steps; ++n) {  // warp-uniform
+    float l0_1, l1_1;
+    logs_of(w_1, m_1, l0_1, l1_1);
+    int w_2, z_2;
+    float m_2, u_2;
+    at(n + 2, w_2, m_2, z_2, u_2);
+
+    const float m = m_0;  // 0 at padding: the step changes nothing
+    const int z_old = z_0;
+    st = st - eta_of<1, G>(eta_r, z_old) * m;
+    if (gl == z_old) nd = nd - m;
+    // log((x − old) + β) and log((nt − old) + Wβ): tabulated for old 0
+    // and 1; a mask other than 0 or 1 computes the old topic's afresh
+    const bool at_old = gl == z_old && m != 0.f;
+    float lw = at_old ? l1_0 : l0_0, ln = at_old ? ln1 : ln0;
+    if (__any_sync(kFull, tv && at_old && m != 1.f)) {  // warp-uniform
+      if (tv && at_old && m != 1.f) {
+        lw = logf((__ldg(table + w_0 * T + gl) - m) + beta);
+        ln = logf((nt_r - m) + w_beta);
+      }
+    }
+    // log(ndt + α): the table's entry where ndt is a count below 256
+    const int k = static_cast<int>(nd);
+    const bool counted = k >= 0 && k < kLogCounts &&
+                         static_cast<float>(k) == nd;
+    float la = log_nd[counted ? k : 0];
+    if (__any_sync(kFull, tv && !counted)) {  // warp-uniform
+      if (!counted) la = logf(nd + alpha);
+    }
+    float l = -INFINITY;
+    if (tv) {
+      l = (la + lw) - ln;
+      if (supervised) {
+        const float mu = (st + eta_r[0]) * il;
+        const float e = yd - mu;
+        l = l - (0.5f * (e * e)) / rho;
+      }
+    }
+    const float mx = group_max<G>(l);
+    const float p = tv ? expf(l - mx) : 0.f;
+    const int z_new = draw_topic_half(p, u_0, gl, T, sp, shift);
+    if (gl == z_new) nd = nd + m;
+    st = st + eta_of<1, G>(eta_r, z_new) * m;
+    if (has && gl == 0) zo[n] = m > 0.f ? z_new : z_old;
+
+    w_0 = w_1;
+    m_0 = m_1;
+    z_0 = z_1;
+    u_0 = u_1;
+    l0_0 = l0_1;
+    l1_0 = l1_1;
+    w_1 = w_2;
+    m_1 = m_2;
+    z_1 = z_2;
+    u_1 = u_2;
+  }
+  if (has) {
+    for (int n = steps + gl; n < N; n += G) zo[n] = zk[n];  // padding
+    if (tv) ndt_out[row * T + gl] = nd;
+  }
+}
+
 }  // namespace slda
 
+// variant 0: warp (any T <= 256, dense or sparse); 1: half_warp (the
+// dense draw at T <= 16, with `ltab` [M, W, 2T] scratch for the table's
+// logs)
 extern "C" int slda_gibbs_sweep_launch(
     const int* tokens, const float* mask, const float* uniforms, const int* z,
     const float* ndt, const float* y, const float* inv_len,
     const float* ntw_t, const float* nt, const float* eta, int* z_out,
     float* ndt_out, int M, int D, int N, int T, int W, float alpha,
     float beta, float w_beta, float rho, int supervised, const int* idx,
-    const float* vmask, const float* occm, int cap, void* stream) {
+    const float* vmask, const float* occm, int cap, int variant, float* ltab,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (variant == 1) {
+    // int offsets within a chain's [W, 2T] logs
+    if (idx || T < 1 || T > 16 || !ltab ||
+        static_cast<long long>(W) * 2 * T >= (1LL << 31))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t n = static_cast<size_t>(M) * W * T;
+    if (n) {
+      slda::gibbs_log_table_kernel<<<static_cast<unsigned>((n + 255) / 256),
+                                     256, 0, st>>>(ntw_t, ltab, n, T, beta);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const int docs = 2 * slda::kWarpsPerBlock;  // two documents a warp
+    slda::gibbs_half_kernel<<<dim3((D + docs - 1) / docs, M),
+                              slda::kWarpsPerBlock * 32, 0, st>>>(
+        tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, ltab, nt, eta,
+        z_out, ndt_out, D, N, T, W, alpha, beta, w_beta, rho, supervised);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((D + slda::kWarpsPerBlock - 1) / slda::kWarpsPerBlock, M);
   const dim3 block(slda::kWarpsPerBlock * 32);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   // a null idx is the dense draw; else the sparse one over cap <= T slots
 #define SLDA_GIBBS_AS(K, SPARSE)                                            \
   slda::gibbs_sweep_kernel<K, SPARSE><<<grid, block, 0, st>>>(              \

@@ -286,60 +286,6 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
 // ---------------------------------------------------------------------------
 // cluster
 
-// the drawing group's max and sum (G = 16: a half-warp's butterfly)
-template <int G>
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, o));
-  return v;
-}
-template <int G>
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// this group's bits of a warp ballot
-template <int G>
-__device__ __forceinline__ unsigned group_bits(unsigned v, int shift) {
-  return G == 32 ? v : (v >> shift) & 0xffffu;
-}
-
-// η of topic z (< T), from the group's registers (topic t in group lane
-// t mod G, slot t / G)
-template <int K, int G>
-__device__ __forceinline__ float eta_of(const float (&eta_r)[K], int z) {
-  float e = 0.f;
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const float v = __shfl_sync(kFull, eta_r[k], z & (G - 1), G);
-    if (z / G == k) e = v;
-  }
-  return e;
-}
-
-// `draw_topic` for a half-warp group (T <= 16, one topic a lane): the
-// same left-to-right prefix sum, counted in the half's bits; the total is
-// the last topic's prefix, the same chain of additions
-__device__ __forceinline__ int draw_topic_half(float p, float u, int gl,
-                                               int T, float* sp, int shift) {
-  if (gl < T) sp[gl] = p;
-  __syncwarp();
-  float c = 0.f;
-#pragma unroll 16
-  for (int i = 0; i < T; ++i) {
-    const float pi = sp[i];
-    if (i <= gl) c += pi;
-  }
-  __syncwarp();  // sp is rewritten by the next token
-  const float total = __shfl_sync(kFull, c, T - 1, 16);
-  const float thr = u * total;
-  return __popc(group_bits<16>(__ballot_sync(kFull, gl < T && c < thr),
-                               shift));
-}
-
 // G lanes draw one document (G = 16: two documents a warp, T <= 16, K =
 // 1; G = 32: one, K topics a lane); `slots` [B, cluster, WARPS, 32 / G,
 // per_slot] names each group's documents (-1: none).

@@ -3,10 +3,14 @@
 `slda_predict_sweeps_cuda` launches `csrc/slda_predict.cu`, which
 replaces the TPU kernel `_predict_kernel` of the reference
 (`repro/kernels/slda_predict.py`); the note at the head of the source
-says what bounds it and what its design does about that.  The plain
-version is `ref.slda_predict_sweeps_chains`.  `launches` counts the
-kernel's launches and nothing else; `sparse_launches` counts those of
-them that drew with the sparse two-stage draw (kernel B4).
+says what bounds it and what each variant's design does about that.
+`variant` picks the variant: `lane` (a document a lane, the dense draw
+at T <= 16, over `lane_layout`'s transposed corpus) on the main path,
+else `warp` (a warp a document), the kernel the lane variant replaced.
+The plain version is `ref.slda_predict_sweeps_chains`.  `launches`
+counts the kernel's launches and nothing else, `variant_launches` the
+same launches by variant; `sparse_launches` counts those of them that
+drew with the sparse two-stage draw (kernel B4).
 """
 from __future__ import annotations
 
@@ -20,17 +24,43 @@ from . import build
 launches = 0
 sparse_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGS = [_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _F] + [_P] * 3 + [_I, _P]
+_ARGS = ([_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _F] + [_P] * 3 + [_I, _I]
+         + [_P] * 3)
+# the C launcher's numbering
+VARIANTS = ("warp", "lane")
+variant_launches = dict.fromkeys(VARIANTS, 0)
+# topics a lane holds; positions a document may have on the lane variant
+# (4 warps' z, one byte a token, in 227 KB of shared memory)
+LANE_TOPICS = 16
+LANE_MAX_N = 232448 // (4 * 32)
+
+
+def variant(T: int, sparse: bool, N: int) -> str:
+    """The variant the main path runs at T topics, N positions a
+    document: `lane` for the dense draw at T <= 16, else `warp`."""
+    if not sparse and T <= LANE_TOPICS and N <= LANE_MAX_N:
+        return "lane"
+    return "warp"
+
+
+def lane_layout(tokens, mask):
+    """The lane variant's view of the shared corpus tokens / mask [D, N]:
+    transposed copies (tokens_t int32 [N, D], mask_t f32 [N, D]).  Lane d
+    of every chain walks document d, column d of the copies, so a warp
+    reads one position of its 32 documents in one coalesced piece."""
+    return tokens.t().contiguous(), mask.t().contiguous()
 
 
 def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
                              n_burnin, n_samples, ctr_stride=None,
-                             topic_index=None):
+                             topic_index=None, kernel_variant=None):
     """tokens int32 / mask f32 [D, N] shared by all chains; seeds int32
     [M, D]; z0 int32 [M, D, N]; ndt0 f32 [M, D, T]; phi_t f32 [M, W, T];
     topic_index None (the dense draw) or the sparse draw's (idx, vmask,
-    occm) of phi_t.  Returns (ndt_avg [M, D, T], z_final [M, D, N]), on
-    the current stream."""
+    occm) of phi_t.  `kernel_variant` None (`variant`'s choice, the main
+    path) or a name of VARIANTS, which `chip_smoke.py` passes to time the
+    replaced kernel on the same inputs.  Returns (ndt_avg [M, D, T],
+    z_final [M, D, N]), on the current stream."""
     global launches, sparse_launches
     M, W, T = phi_t.shape
     D, N = tokens.shape
@@ -46,11 +76,20 @@ def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
     if not 1 <= T <= 256:
         raise ValueError(f"the prediction kernel takes 1 <= T <= 256, got {T}")
     index = build.topic_index_operands(topic_index, M, W, T, dev)
+    sparse = topic_index is not None
+    kind = kernel_variant or variant(T, sparse, N)
+    if kind not in VARIANTS:
+        raise ValueError(f"slda_predict: no {kind} variant")
+    if kind == "lane" and variant(T, sparse, N) != "lane":
+        raise ValueError(f"slda_predict: the lane variant draws dense at "
+                         f"T <= {LANE_TOPICS}, N <= {LANE_MAX_N}")
     ndt_avg = torch.empty_like(ndt0)
     z_out = torch.empty_like(z0)
     if M * D == 0:
         return ndt_avg, z_out
     launch = build.bind("slda_predict", "slda_predict_sweeps_launch", _ARGS)
+    layout = lane_layout(tokens, mask) if kind == "lane" else ()
+    ptrs = [t.data_ptr() for t in layout] or [0, 0]
     with build.on_device(dev):
         rc = launch(tokens.data_ptr(), mask.data_ptr(), seeds.data_ptr(),
                     z0.data_ptr(), ndt0.data_ptr(), phi_t.data_ptr(),
@@ -58,10 +97,11 @@ def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
                     float(alpha), int(n_burnin), int(n_samples),
                     int(N if ctr_stride is None else ctr_stride),
                     float(np.float32(1.0 / n_samples)), *index,
-                    build.stream_of(dev))
+                    VARIANTS.index(kind), *ptrs, build.stream_of(dev))
     build.check_launch("slda_predict", rc)
     launches += 1
-    sparse_launches += topic_index is not None
+    variant_launches[kind] += 1
+    sparse_launches += sparse
     return ndt_avg, z_out
 
 

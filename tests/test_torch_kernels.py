@@ -263,6 +263,39 @@ def test_train_kernel_variants_refuse_cpu_tensors(variant):
     assert slda_train.variant_launches == by_variant
 
 
+@pytest.mark.parametrize("module,variant", [
+    (slda_predict, "lane"), (slda_predict, "warp"),
+    (slda_gibbs, "half_warp"), (slda_gibbs, "warp")])
+def test_sampler_kernel_variants_refuse_cpu_tensors(module, variant):
+    """Either variant of B1 and of B2 launches its kernel or raises: on
+    CPU tensors it tries to build for a card there is none of, counts no
+    launch, by variant or at all, and runs no plain version in its
+    place; an unknown variant, or the new one where it does not apply
+    (the sparse draw, T > 16), is refused before any build."""
+    if module is slda_predict:
+        a = [torch.from_numpy(x) for x in _predict_inputs(0, 2, 6, 8, 20, 7)]
+        kw = dict(alpha=ALPHA, n_burnin=1, n_samples=1)
+        call = slda_predict.slda_predict_sweeps_cuda
+        wide = [torch.from_numpy(x) for x in
+                _predict_inputs(0, 2, 6, 17, 20, 7)]
+    else:
+        a = [torch.from_numpy(x) for x in _gibbs_inputs(0, 2, 5, 8, 20, 6)]
+        kw = dict(alpha=ALPHA, beta=BETA, rho=RHO)
+        call = slda_gibbs.slda_gibbs_sweep_cuda
+        wide = [torch.from_numpy(x) for x in _gibbs_inputs(0, 2, 5, 17, 20, 6)]
+    n = module.launches
+    by_variant = dict(module.variant_launches)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        call(*a, kernel_variant=variant, **kw)
+    with pytest.raises(ValueError, match="no block variant"):
+        call(*a, kernel_variant="block", **kw)
+    new = module.VARIANTS[1]
+    with pytest.raises(ValueError, match=f"the {new} variant draws dense"):
+        call(*wide, kernel_variant=new, **kw)
+    assert module.launches == n
+    assert module.variant_launches == by_variant
+
+
 def test_ops_refuse_other_devices():
     a = [torch.from_numpy(x).to("meta") for x in
          _gibbs_inputs(0, 1, 4, 8, 20, 6)]
