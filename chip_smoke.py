@@ -11,12 +11,14 @@ Phases, one JSON line each:
 
   env            card, power limit, torch and CUDA versions; TF32 off
   build          nvcc build of every kernel source, its time and ptxas use
-                 (B1's and B2's kernels' registers and spills apart), and
-                 the count of HGMMA (wgmma) instructions in B5's machine
-                 code and of HMMA or HGMMA in B6's (there must be some)
+                 (B1's and B2's kernels' registers and spills apart;
+                 every sampler kernel's spills, none allowed in the
+                 kernels of SPILL_FREE_KERNELS), and the count of
+                 HGMMA (wgmma) instructions in B5's machine code and of
+                 HMMA or HGMMA in B6's (there must be some)
   counter_hash   the kernels' counter hash bit-equal to the torch version
   B1 / B2 / B3   each kernel against its plain version at the slice's
-                 shapes and at T = 128 (B3 also in log form): draw
+                 shapes and at T = 128 and 512 (B3 also in log form): draw
                  mismatch over real tokens, exact counts, times, bound;
                  each row names the variant the main path runs (B1 lane
                  or warp, B2 half_warp or warp, B3 cluster) and runs, on
@@ -31,7 +33,14 @@ Phases, one JSON line each:
                  warps, so its step against the slice's tells latency
                  from issue); B1 also at one chain over the test
                  documents (`test_one_chain`, Nonparallel's and Naive's
-                 predict launch)
+                 predict launch); B3 held sweep by sweep: sweep k of the
+                 kernel (its launch of k sweeps) against the plain version
+                 handed the kernel's own state after k − 1 sweeps (z,
+                 ndt, the launch-start and block-local tables) and sweep
+                 k's uniforms, k = 1..8, each within the bound
+                 (`sweep_mismatch`; the 8-sweep comparison from the start,
+                 where one draw at a rounding edge spreads through its doc
+                 block, is reported as `fused_mismatch`)
   B3_parting     B3 against its plain version after 1, 2, .. 8 sweeps at
                  T = 128 on four fresh inputs: mismatched tokens after
                  each (one draw at a rounding edge spreads through its doc
@@ -40,20 +49,30 @@ Phases, one JSON line each:
                  each kernel's sparse-draw instantiation (kernel B4
                  inside it) against its plain version, at the slice's
                  shape with the default cap (clamped to T) and with cap 4,
-                 and at T = 128 with cap 32: draw mismatch, exact counts,
-                 the share of real tokens that took stage 2 (from the
-                 plain version), the sparse and the dense kernel's times
-                 on the same inputs, plain time, bound, and as the dense
-                 rows the variant, the replaced kernel (B1 and B2 draw
-                 sparse on the warp variant, their own replaced kernel)
-                 and the critical path
-  B4             the sparse draw's device function alone against its
-                 plain version, on the rows of one training sweep
+                 and at T = 128 and 512 with cap 32: draw mismatch, exact
+                 counts, the share of real tokens that took stage 2 (from
+                 the plain version), the sparse and the dense kernel's
+                 times on the same inputs, plain time, bound, and as the
+                 dense rows the main path's variant (B1 lane, B2
+                 half_warp, B3 cluster with two groups a warp at T <= 16),
+                 the replaced kernel (B1 and B2 warp, B3 block; draws and
+                 counts equal) and the critical path; B3_sparse held
+                 sweep by sweep as B3
+  B4             the sparse draw alone against its plain version, on the
+                 rows of one training sweep (T = 16, cap 4) and at T = 128
+                 and 512 (cap 32): each form's mismatch, time by events
+                 and device time by the profiler (lane, half_warp and
+                 warp at T <= 16), the records packed on the card equal
+                 to the plain packing, the packing's times
   small_shapes   B1, B2 and B3, dense and sparse, against their plain
-                 versions at small shapes over T = 3, 16, 40, 128 and 256
-                 (T off the 16- and 32-topic grids, K = 1, 2, 4, 8); where
-                 B1's or B2's main-path variant is not the warp one, its
-                 draws and counts against the warp variant's
+                 versions at small shapes over T = 3, 16, 40, 128, 256 and
+                 512 (T off the 16- and 32-topic grids, K = 1, 2, 4, 8,
+                 16); where B1's or B2's main-path variant is not the warp
+                 one, its draws and counts against the warp variant's
+  prefix_order   a report: at each shape [R, T] the plain samplers' prefix
+                 sums took in the rows above, the rows of random weights
+                 that one GEMM p @ triu(T), and `mathutil.prefix_sum`,
+                 sum out of left-to-right order (the kernels' order)
   end_to_end     the paper's four algorithms at the slice's configuration
                  (`repro_torch.fig6_mdna`) through their entry points,
                  with the kernels' launch counts over that run, B1's and
@@ -61,7 +80,11 @@ Phases, one JSON line each:
   end_to_end_fused  the same at sweeps_per_launch = 8 (kernel B3, every
                  launch on its cluster variant, counted by variant)
   end_to_end_sparse  the same with sampler_mode="sparse", at
-                 sweeps_per_launch 1 and 8: every launch a sparse one
+                 sweeps_per_launch 1 and 8: every launch a sparse one, on
+                 the main path's variant
+  sparse_T512    one Simple Average run at sweeps_per_launch 8 on the
+                 slice's corpus with T = 512, dense and sparse (cap 32):
+                 train and predict ms, test MSE (finite), launch counts
   profile        one Simple Average run under torch.profiler, at each of
                  the two settings and sparse at 8: device busy time, idle
                  share, B3's share of the busy time and the kernels that
@@ -159,6 +182,18 @@ PEAK_FP32_S = 67e12
 OPS_PER_TOPIC = {"B1": 7, "B2": 25, "B3_log": 25, "B3_product": 21}
 # the dense draw's share of those: the scan add and the compare
 DENSE_DRAW_OPS = 2
+# the kernels (fragments of their mangled names) that the build phase
+# requires without spills: every B1 and B2 kernel (each variant, dense and
+# sparse, K = 1 to 16 slots), B4 alone in each form, the record packing,
+# B3's half-warp cluster kernels, and B3's kernels at K = 12 and 16 (T up
+# to 512, 8-warp CTAs).  B3's 16- and 32-warp kernels at K <= 8 have 128
+# or 64 registers a thread by their CTA size; their spills are reported.
+SPILL_FREE_KERNELS = (
+    "predict_", "gibbs_", "sparse_draw_", "pack_topic_index_kernel",
+    "train_cluster_kernelILi1ELi16ELb0ELi16E",
+    "train_cluster_kernelILi1ELi16ELb1ELi16E",
+    *(f"{k}ILi{K}E" for K in (12, 16)
+      for k in ("train_sweeps_kernel", "train_cluster_kernel")))
 MISMATCH_MAX = 1e-3
 # the LM kernels' bf16 operations run at most at the dense bf16
 # tensor-core rate; float32 ones on the CUDA cores (TF32 stays off)
@@ -287,16 +322,13 @@ def critical_path(real_per_doc, sweeps, timed):
     return out
 
 
-def b3_critical_path(mask, D, doc_block, T, sweeps, ms, replaced_ms,
-                     sparse=False):
+def b3_critical_path(mask, D, doc_block, T, sweeps, ms, replaced_ms):
     """B3's cluster size and critical path on these inputs (mask [M, D,
     N]), for the cluster variant and the block variant it replaced."""
     from repro_torch.kernels import slda_train
-    return {"cluster": slda_train.slot_plan(D, doc_block, T,
-                                            sparse=sparse)[0],
+    return {"cluster": slda_train.slot_plan(D, doc_block, T)[0],
             **critical_path(mask.sum(-1), sweeps, [
-                (key, slda_train.walks(D, doc_block, T, variant,
-                                       sparse=sparse), t_ms)
+                (key, slda_train.walks(D, doc_block, T, variant), t_ms)
                 for key, variant, t_ms in (("", "cluster", ms),
                                            ("replaced_", "block",
                                             replaced_ms))])}
@@ -966,6 +998,7 @@ def main() -> int:
     from repro_torch.kernels import (build, ref, slda_gibbs, slda_predict,
                                      slda_train, sparse)
     from repro_torch.kernels.prng import counter_uniform
+    from repro_torch.mathutil import upper_tri_ones
 
     dev = resolve_device("cuda")       # raises if TF32 were on
     smi = subprocess.run(
@@ -995,8 +1028,16 @@ def main() -> int:
          str(Path(build.build_info["directory"]) / "libssd_scan.so")],
         capture_output=True, text=True, check=True).stdout
     tc6 = sum("HMMA" in ln or "HGMMA" in ln for ln in sass6.splitlines())
+    gated_ptxas = ptxas_use(build.build_info["log"], SPILL_FREE_KERNELS)
+    # every sampler kernel's spills (the warp layout's at K up to 16)
+    spills = {k: v for k, v in ptxas_use(
+        build.build_info["log"],
+        ("predict_", "gibbs_", "train_", "sparse_draw")).items()
+              if v.get("spill_stores") or v.get("spill_loads")}
     emit({"phase": "build", "seconds": build.build_info["seconds"],
           "directory": build.build_info["directory"], "ptxas": ptxas,
+          "gated_ptxas": gated_ptxas,
+          "sampler_kernels_with_spills": spills,
           # B1's and B2's variants (the warp ones at K = 1, T <= 32)
           "b1_b2_ptxas": ptxas_use(
               build.build_info["log"],
@@ -1004,6 +1045,10 @@ def main() -> int:
                "predict_sweeps_kernelILi1E", "gibbs_sweep_kernelILi1E")),
           "b5_hgmma_instructions": hgmma,
           "b6_tensor_core_instructions": tc6})
+    check(all(any(f in k for k in gated_ptxas) for f in SPILL_FREE_KERNELS)
+          and not any(v.get("spill_stores") or v.get("spill_loads")
+                      for v in gated_ptxas.values()),
+          f"a kernel missing or spilling {gated_ptxas}")
     check(hgmma > 0, "B5: no HGMMA instruction in its machine code")
     check(tc6 > 0, "B6: no HMMA or HGMMA instruction in its machine code")
 
@@ -1068,6 +1113,38 @@ def main() -> int:
         return {"replaced_ms": event_ms(lambda: run("warp"), reps),
                 "replaced_draws_equal": same}
 
+    def sweep_by_sweep(a, kw, real, index=None):
+        """B3 held sweep by sweep from identical states (ROADMAP C2): for
+        k = 1 .. n_sweeps, the kernel's launch of k sweeps against the
+        plain version's sweep k alone, handed the kernel's own z and ndt
+        after k − 1 sweeps (its launch of k − 1 sweeps from the same
+        start), the launch-start tables and the block-local tables they
+        imply, and sweep k's uniforms.  The mismatch of each sweep over
+        real tokens."""
+        tokens, msk, sd, z0, ndt0, y, il, ntw_t, nt, eta = a
+        one = {k: v for k, v in kw.items() if k != "n_sweeps"}
+        z, ndt, out = z0, ndt0, []
+        for k in range(1, kw["n_sweeps"] + 1):
+            z_k, ndt_k = slda_train.slda_train_sweeps_cuda(
+                *a, n_sweeps=k, topic_index=index, **one)
+            z_p, _ = ref.slda_train_sweep_from(
+                tokens, msk, sd, z0, z, ndt, y, il, ntw_t, nt, eta,
+                sweep=k - 1, topic_index=index, **one)
+            out.append(float(((z_k != z_p) & (msk > 0)).sum()) / real)
+            z, ndt = z_k, ndt_k
+        return out
+
+    # the shapes [R, T] of the prefix sums the plain samplers take in the
+    # B1 to B3 rows below (read by the prefix_order phase after them)
+    prefix_shapes = set()
+    plain_prefix_sum = ref.prefix_sum
+
+    def recorded_prefix_sum(p, tri_u=None):
+        prefix_shapes.add(tuple(p.shape))
+        return plain_prefix_sum(p, tri_u)
+
+    ref.prefix_sum = recorded_prefix_sum
+
     # ---- B1: prediction, shared corpus (the weighted pass: test + train)
     both = torch.cat([test.tokens, train.tokens]), \
         torch.cat([test.mask, train.mask])
@@ -1082,7 +1159,8 @@ def main() -> int:
     for label, t, d, chains in (("slice", T0, both[0].shape[0], M),
                                 ("slice_one_chain", T0, both[0].shape[0], 1),
                                 ("test_one_chain", T0, test.n_docs, 1),
-                                ("T128", 128, 256, M)):
+                                ("T128", 128, 256, M),
+                                ("T512", 512, 256, M)):
         tokens, mask = both[0][:d].contiguous(), both[1][:d].contiguous()
         rg = gen if chains == M else gen1
         ri = dict(int32, generator=rg)
@@ -1153,7 +1231,8 @@ def main() -> int:
     # ---- B2: one training sweep, chain-sharded corpus
     for label, t, docs, chains in (("slice", T0, train.n_docs, M),
                                    ("slice_one_chain", T0, train.n_docs, 1),
-                                   ("T128", 128, 1024, M)):
+                                   ("T128", 128, 1024, M),
+                                   ("T512", 512, 1024, M)):
         sh = partition(train.map(lambda x: x[:docs]), M)
         d = sh.n_docs
         rg = gen if chains == M else gen1
@@ -1207,7 +1286,8 @@ def main() -> int:
     for label, t, docs, sweeps, product in (
             ("slice", T0, train.n_docs, 8, True),
             ("T128", 128, 1024, 8, True),
-            ("slice_log", T0, train.n_docs, 2, False)):
+            ("slice_log", T0, train.n_docs, 2, False),
+            ("T512", 512, 1024, 8, True)):
         sh = partition(train.map(lambda x: x[:docs]), M)
         d = sh.n_docs
         z = torch.randint(0, t, tuple(sh.tokens.shape), **int32)
@@ -1226,7 +1306,9 @@ def main() -> int:
             lambda: slda_train.slda_train_sweeps_cuda(*a, **kw))
         z_p, ndt_p = ref.slda_train_sweeps_chains(*a, **kw)
         real = float(sh.mask.sum())
-        mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
+        fused_mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
+        sweep_mis = sweep_by_sweep(a, kw, real)
+        mis = max(sweep_mis)
         # the replaced kernel's draws, which the cluster variant repeats
         same = replaced_agrees(
             (z_k, ndt_k), slda_train.slda_train_sweeps_cuda(
@@ -1256,7 +1338,8 @@ def main() -> int:
                "N": sh.max_len, "T": t, "W": W, "doc_block": db,
                "sweeps": sweeps, "product_form": product,
                "variant": kind, "real_tokens": real,
-               "draw_mismatch": mis, "max_abs_err": err,
+               "draw_mismatch": mis, "sweep_mismatch": sweep_mis,
+               "fused_mismatch": fused_mis, "max_abs_err": err,
                "counts_exact": exact, "refresh_exact": refresh_exact,
                "ms": ms, "replaced_ms": replaced_ms, "plain_ms": plain,
                "bound_ms": b_ms, "bound_by": b_by,
@@ -1266,7 +1349,8 @@ def main() -> int:
         emit(row)
         rows.setdefault("B3", row)
         check(same, f"B3 {label}: draws differ from the replaced kernel's")
-        check(mis <= MISMATCH_MAX, f"B3 {label}: draw mismatch {mis}")
+        check(mis <= MISMATCH_MAX,
+              f"B3 {label}: a sweep's draw mismatch {sweep_mis}")
         check(exact, f"B3 {label}: ndt differs from counts of z")
         check(refresh_exact, f"B3 {label}: count refresh differs")
 
@@ -1314,7 +1398,8 @@ def main() -> int:
     # the dense instantiation is timed on the same inputs.  The plain
     # version tallies the real tokens that took stage 2.
     sparse_shapes = (("slice", T0, cfg.sparse_topic_cap),
-                     ("slice_cap4", T0, 4), ("T128", 128, 32))
+                     ("slice_cap4", T0, 4), ("T128", 128, 32),
+                     ("T512", 512, 32))
 
     def index_of(table_t, cap):
         return tuple(a.contiguous()
@@ -1339,6 +1424,11 @@ def main() -> int:
         real = float(mask.sum()) * M
         a = (tokens, mask, sd, z0, ndt0, phi_t)
         one = dict(alpha=cfg.alpha, n_burnin=0, n_samples=1)
+
+        def b1s_run(v, kw):
+            avg, z = slda_predict.slda_predict_sweeps_cuda(
+                *a, topic_index=index, kernel_variant=v, **kw)
+            return z, avg
         (avg_k, z_k), kind = variant_of(
             slda_predict.variant_launches,
             lambda: slda_predict.slda_predict_sweeps_cuda(
@@ -1364,7 +1454,11 @@ def main() -> int:
             list(a) + list(index) + [avg_k, z_k],
             ((OPS_PER_TOPIC["B1"] - DENSE_DRAW_OPS) * t
              + sparse_draw_ops(t, k_cap, share)) * steps)
-        replaced = against_warp(kind, None, None, mask, 5, ms)
+        replaced = against_warp(kind, lambda v: b1s_run(v, full),
+                                b1s_run(None, full), mask, 5, ms)
+        if kind != "warp":
+            replaced["replaced_draws_equal"] &= replaced_agrees(
+                (z_k, avg_k), b1s_run("warp", one), mask)
         row = {"phase": "B1_sparse", "shape": label, "M": M, "D": d,
                "N": tokens.shape[1], "T": t, "W": W, "cap": k_cap,
                "variant": kind, "real_tokens": real, "draw_mismatch": mis,
@@ -1376,7 +1470,10 @@ def main() -> int:
                    ("", own_walks(d), ms),
                    ("replaced_", own_walks(d), replaced["replaced_ms"])])}
         emit(row)
-        check(kind == "warp", f"B1_sparse {label}: ran {kind}")
+        check(kind == slda_predict.variant(t, True, tokens.shape[1]),
+              f"B1_sparse {label}: ran {kind}")
+        check(row["replaced_draws_equal"],
+              f"B1_sparse {label}: draws differ from the replaced kernel's")
         check(mis <= MISMATCH_MAX, f"B1_sparse {label}: draw mismatch {mis}")
         check(exact, f"B1_sparse {label}: ndt differs from counts of z")
 
@@ -1417,7 +1514,9 @@ def main() -> int:
             list(a) + list(index) + [z_k, ndt_k],
             ((OPS_PER_TOPIC["B2"] - DENSE_DRAW_OPS) * t
              + sparse_draw_ops(t, k_cap, share)) * real)
-        replaced = against_warp(kind, None, None, sh.mask, 20, ms)
+        run = lambda v=None: slda_gibbs.slda_gibbs_sweep_cuda(  # noqa: E731
+            *a, topic_index=index, kernel_variant=v, **kw)
+        replaced = against_warp(kind, run, (z_k, ndt_k), sh.mask, 20, ms)
         row = {"phase": "B2_sparse", "shape": label, "M": M, "D": d,
                "N": sh.max_len, "T": t, "W": W, "cap": k_cap,
                "variant": kind, "real_tokens": real, "draw_mismatch": mis,
@@ -1429,7 +1528,10 @@ def main() -> int:
                    ("", own_walks(d), ms),
                    ("replaced_", own_walks(d), replaced["replaced_ms"])])}
         emit(row)
-        check(kind == "warp", f"B2_sparse {label}: ran {kind}")
+        check(kind == slda_gibbs.variant(t),
+              f"B2_sparse {label}: ran {kind}")
+        check(row["replaced_draws_equal"],
+              f"B2_sparse {label}: draws differ from the replaced kernel's")
         rows.setdefault("B2_sparse", row)
         check(mis <= MISMATCH_MAX, f"B2_sparse {label}: draw mismatch {mis}")
         check(exact, f"B2_sparse {label}: ndt differs from counts of z")
@@ -1465,7 +1567,9 @@ def main() -> int:
                 *a, topic_index=index, kernel_variant="block", **kw),
             sh.mask)
         real = float(sh.mask.sum())
-        mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
+        fused_mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
+        sweep_mis = sweep_by_sweep(a, kw, real, index)
+        mis = max(sweep_mis)
         err = float((ndt_k - ndt_p).abs().max())
         recount, _, _ = counts_from_assignments(sh.tokens, sh.mask, z_k, t,
                                                 W)
@@ -1489,22 +1593,27 @@ def main() -> int:
                "N": sh.max_len, "T": t, "W": W, "cap": k_cap,
                "doc_block": db, "sweeps": 8, "product_form": True,
                "real_tokens": real, "draw_mismatch": mis,
+               "sweep_mismatch": sweep_mis, "fused_mismatch": fused_mis,
                "max_abs_err": err, "counts_exact": exact,
                "stage2_share": share, "variant": kind, "ms": ms,
                "replaced_ms": replaced_ms, "dense_ms": dense_ms,
                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
                "replaced_draws_equal": same,
-               **b3_critical_path(sh.mask, d, db, t, 8, ms, replaced_ms,
-                                  sparse=True)}
+               **b3_critical_path(sh.mask, d, db, t, 8, ms, replaced_ms)}
         emit(row)
+        check(kind == "cluster", f"B3_sparse {label}: ran {kind}")
         check(same, f"B3_sparse {label}: draws differ from the replaced "
               f"kernel's")
-        check(mis <= MISMATCH_MAX, f"B3_sparse {label}: draw mismatch {mis}")
+        check(mis <= MISMATCH_MAX,
+              f"B3_sparse {label}: a sweep's draw mismatch {sweep_mis}")
         check(exact, f"B3_sparse {label}: ndt differs from counts of z")
 
-    # ---- B4 alone: the device function on the rows of one sweep at the
-    # slice's shape with cap 4, and at T = 128 with cap 32
-    for label, t, cap in (("slice_cap4", T0, 4), ("T128", 128, 32)):
+    # ---- B4 alone: the draw on the rows of one sweep at the slice's
+    # shape with cap 4, and at T = 128 and 512 with cap 32; every form of
+    # it at T <= 16 (first the one most sparse launches run), and the
+    # records packed on the card against the plain packing
+    for label, t, cap in (("slice_cap4", T0, 4), ("T128", 128, 32),
+                          ("T512", 512, 32)):
         if t == T0:
             tok, msk, table, index = b4_in
         else:
@@ -1523,24 +1632,49 @@ def main() -> int:
         pw = pw.contiguous()
         uw = torch.rand((R,), device=dev, generator=gen)
         iw = tuple(x.reshape(M * W, -1)[rows_w].contiguous() for x in index)
-        z_k = sparse.sparse_two_stage_draw_cuda(pw, uw, *iw)
         z_p, stage2 = sparse.two_stage_draw(pw, uw, *iw)
-        mis = float((z_k != z_p).sum()) / R
-        err = float((z_k - z_p).abs().max())
-        ms = event_ms(lambda: sparse.sparse_two_stage_draw_cuda(pw, uw, *iw),
-                      20)
+        kind = sparse.draw_variant(t)
+        forms = [kind] + [v for v in sparse.VARIANTS
+                          if v != kind and (t <= sparse.LANE_TOPICS
+                                            or v == "warp")]
+        # times by events back to back (host-bound at these sizes: a
+        # call's host work outlasts its two kernels) and device times
+        # by the profiler (the packing and the draw, summed)
+        form_mis, form_ms, form_us = {}, {}, {}
+        for v in forms:
+            z_k = sparse.sparse_two_stage_draw_cuda(pw, uw, *iw,
+                                                    kernel_variant=v)
+            form_mis[v] = float((z_k != z_p).sum()) / R
+            call = lambda: sparse.sparse_two_stage_draw_cuda(  # noqa: E731
+                pw, uw, *iw, kernel_variant=v)
+            form_ms[v] = event_ms(call, 20)
+            form_us[v] = device_us(call)[0]
+            if v == kind:
+                err = float((z_k - z_p).abs().max())
+        pack_equal = bool(torch.equal(sparse.pack_topic_index_cuda(*iw),
+                                      sparse.pack_topic_index(*iw)))
+        pack_ms = event_ms(lambda: sparse.pack_topic_index_cuda(*iw), 20)
+        pack_us = device_us(lambda: sparse.pack_topic_index_cuda(*iw))[0]
         plain = event_ms(lambda: sparse.sparse_two_stage_draw(pw, uw, *iw),
                          5)
         share = float(stage2.float().mean())
-        b_ms, b_by = bound_ms([pw, uw, *iw, z_k],
+        b_ms, b_by = bound_ms([pw, uw, *iw, z_p],
                               sparse_draw_ops(t, cap, share) * R)
         row = {"phase": "B4", "shape": label, "rows": R, "T": t, "cap": cap,
-               "draw_mismatch": mis, "max_abs_err": err,
-               "stage2_share": share, "ms": ms, "plain_ms": plain,
+               "variant": kind, "draw_mismatch": form_mis[kind],
+               "max_abs_err": err, "stage2_share": share,
+               "ms": form_ms[kind], "variant_ms": form_ms,
+               "device_us": form_us[kind], "variant_device_us": form_us,
+               "variant_mismatch": form_mis, "pack_ms": pack_ms,
+               "pack_device_us": pack_us, "pack_equal": pack_equal,
+               "plain_ms": plain,
                "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         rows.setdefault("B4", row)
-        check(mis <= MISMATCH_MAX, f"B4 {label}: draw mismatch {mis}")
+        check(max(form_mis.values()) <= MISMATCH_MAX,
+              f"B4 {label}: draw mismatch {form_mis}")
+        check(pack_equal, f"B4 {label}: records differ from the plain "
+              f"packing")
 
     # ---- small shapes, every kernel dense and sparse, on inputs drawn from
     # a generator of their own: z mostly a function of the word (so a
@@ -1549,7 +1683,8 @@ def main() -> int:
     for t, cap, d, w_dim, n in ((16, 16, 512, 500, 60), (16, 4, 512, 500, 60),
                                 (40, 8, 256, 300, 40), (3, 2, 128, 50, 20),
                                 (128, 32, 128, 400, 40),
-                                (256, 32, 64, 300, 30)):
+                                (256, 32, 64, 300, 30),
+                                (512, 32, 64, 300, 30)):
         tok = torch.randint(0, w_dim, (M, d, n), device=dev, generator=g,
                             dtype=torch.int32)
         lens = torch.randint(n // 3, n + 1, (M, d), device=dev, generator=g)
@@ -1624,6 +1759,26 @@ def main() -> int:
             check(same1 and same2, f"small_shapes T={t} {mode}: draws "
                   f"differ from the replaced kernels'")
 
+    # ---- prefix_order: whether the plain draw's prefix sum is the kernels'
+    # left-to-right chain at the shapes the rows above handed it (a
+    # report): for each [R, T], the rows of random weights in which one
+    # GEMM p @ triu(T), and `mathutil.prefix_sum` (one GEMM up to 256
+    # topics, 128-column pieces past it), differ anywhere from one chain of
+    # float32 adds a row, column by column
+    ref.prefix_sum = plain_prefix_sum
+    for r_rows, t in sorted(prefix_shapes, key=lambda rt: (rt[1], rt[0])):
+        p = torch.rand((r_rows, t), device=dev, generator=gen) + 0.01
+        chain, c = torch.empty_like(p), torch.zeros_like(p[:, 0])
+        for j in range(t):
+            c = c + p[:, j]
+            chain[:, j] = c
+        one = p @ upper_tri_ones(t, dev)
+        emit({"phase": "prefix_order", "rows": r_rows, "T": t,
+              "one_gemm_rows_out_of_order":
+                  int((one != chain).any(-1).sum()),
+              "prefix_sum_rows_out_of_order":
+                  int((ref.prefix_sum(p) != chain).any(-1).sum())})
+
     # ---- end to end: the four algorithms through their entry points, at
     # one sweep per launch (B2) and at eight (B3), dense and sparse; each
     # run's launch counts are zeroed just before it and read just after
@@ -1632,6 +1787,18 @@ def main() -> int:
     sparse_fused = dataclasses.replace(fused, sampler_mode="sparse")
     modules = {"B1": slda_predict, "B2": slda_gibbs, "B3": slda_train}
     counted = {}
+
+    def zero_counts():
+        for mod in modules.values():
+            mod.launches = mod.sparse_launches = 0
+            for v in mod.variant_launches:
+                mod.variant_launches[v] = 0
+
+    def read_counts():
+        """B1–B3's launches, sparse launches and launches by variant."""
+        return ({k: mod.launches for k, mod in modules.items()},
+                {k: mod.sparse_launches for k, mod in modules.items()},
+                {k: dict(mod.variant_launches) for k, mod in modules.items()})
     for phase, run_cfg, want in (
             ("end_to_end", cfg, {"B1": 4, "B2": 4 * cfg.n_iters, "B3": 0}),
             ("end_to_end_fused", fused, {"B1": 4, "B2": 0, "B3": 16}),
@@ -1641,17 +1808,10 @@ def main() -> int:
              {"B1": 4, "B2": 0, "B3": 16})):
         fig6_mdna.run(args.seed, dev, data=(train, test),
                       cfg=run_cfg)                           # warm-up
-        for mod in modules.values():
-            mod.launches = mod.sparse_launches = 0
-            for v in mod.variant_launches:
-                mod.variant_launches[v] = 0
+        zero_counts()
         res = fig6_mdna.run(args.seed, dev, data=(train, test), cfg=run_cfg)
         torch.cuda.synchronize()
-        launches = {k: mod.launches for k, mod in modules.items()}
-        sparse_launches = {k: mod.sparse_launches
-                           for k, mod in modules.items()}
-        variants = {k: dict(mod.variant_launches)
-                    for k, mod in modules.items()}
+        launches, sparse_launches, variants = read_counts()
         counted[phase, run_cfg.sweeps_per_launch] = (launches,
                                                      sparse_launches,
                                                      variants)
@@ -1669,7 +1829,7 @@ def main() -> int:
         is_sparse = run_cfg.sampler_mode == "sparse"
         main_variant = {
             "B1": slda_predict.variant(T0, is_sparse, test.max_len),
-            "B2": slda_gibbs.variant(T0, is_sparse), "B3": "cluster"}
+            "B2": slda_gibbs.variant(T0), "B3": "cluster"}
         check(all(variants[k][v] == launches[k]
                   for k, v in main_variant.items()),
               f"{phase}: launches by variant {variants}")
@@ -1685,6 +1845,41 @@ def main() -> int:
                   f"{0.6 * var_y}")
         check(mse["naive"] > mse["simple"],
               f"{phase}: naive not worse than simple {mse}")
+
+    # ---- sparse_T512: one Simple Average run at spl 8 on the slice's
+    # corpus with T = 512, the top of the reference's sparse grid
+    # (BENCH_slda_sparse.json), dense and sparse with cap 32; the launch
+    # counts are zeroed just before the timed run and read just after
+    from repro_torch.timing import PhaseTimer
+    for mode in ("dense", "sparse"):
+        run_cfg = dataclasses.replace(fused, n_topics=512, sampler_mode=mode,
+                                      sparse_topic_cap=32)
+        ALGORITHMS["simple"](args.seed + 1, train, test, run_cfg, M,
+                             device=dev)                     # warm-up
+        zero_counts()
+        timer = PhaseTimer(dev)
+        yhat = ALGORITHMS["simple"](args.seed + 1, train, test, run_cfg, M,
+                                    device=dev, timer=timer)
+        torch.cuda.synchronize()
+        launches, sparse_launches, variants = read_counts()
+        mse = float(((yhat - test.y) ** 2).mean())
+        emit({"phase": "sparse_T512", "card": smi, "sampler_mode": mode,
+              "T": 512, "sparse_topic_cap": 32, "sweeps_per_launch": 8,
+              "phase_ms": timer.ms(), "test_mse": mse,
+              "var_y_test": float(test.y.var(unbiased=False)),
+              "launches": launches, "sparse_launches": sparse_launches,
+              "variant_launches": variants})
+        check(mse == mse and abs(mse) != float("inf"),
+              f"sparse_T512 {mode}: non-finite test MSE {mse}")
+        want = {"B1": 1, "B2": 0, "B3": -(-run_cfg.n_iters // 8)}
+        check(launches == want, f"sparse_T512 {mode}: launches {launches}")
+        check(sparse_launches == (launches if mode == "sparse" else
+                                  {k: 0 for k in launches}),
+              f"sparse_T512 {mode}: sparse launches {sparse_launches}")
+        check(variants["B1"][slda_predict.variant(
+            512, mode == "sparse", test.max_len)] == 1
+              and variants["B3"]["cluster"] == want["B3"],
+              f"sparse_T512 {mode}: launches by variant {variants}")
 
     # ---- where the time goes: one simple-average run under the profiler
     from torch.autograd import DeviceType

@@ -19,7 +19,7 @@
 // dependent chain of the longest document.  Two variants, named by the
 // wrapper (`slda_gibbs.variant`):
 //
-// * half_warp (the main path: the dense draw at T <= 16).  A half-warp
+// * half_warp (the main path at T <= 16, dense or sparse).  A half-warp
 //   walks one document, topic t in lane t of the half, with the max, the
 //   prefix sum and the ballot per half: B3's cluster group layout and its
 //   `draw_topic_half`, so a warp instruction serves two documents.  The
@@ -44,8 +44,8 @@
 //   the 16-add prefix sum, the ballot and the add back; one chain (a
 //   quarter of the warps) is about as slow as four.
 //
-// * warp (the kernel the half_warp variant replaced, and the sparse draw
-//   and T > 16): one warp per (chain, document), lane j holding topic
+// * warp (the kernel the half_warp variant replaced, and T > 16): one
+//   warp per (chain, document), lane j holding topic
 //   t = j + 32k; ndt, nt, η and s in registers; tokens, mask, z and
 //   uniforms read 32 positions at a time and broadcast by shuffle; three
 //   logf a topic every token, the table row and η read on the chain.
@@ -57,10 +57,15 @@
 // separate tensor operations do.
 //
 // SPARSE instantiations (`sampler_mode="sparse"`, the TPU kernel's branch
-// at slda_gibbs.py:74-79) run on the warp variant and draw through
-// `draw_topic_sparse` against the topic index of the sweep-frozen table
-// (idx, vmask [M, W, cap], occm [M, W, T]); everything else is the dense
-// kernel.
+// at slda_gibbs.py:74-79) draw through kernel B4 against the topic index
+// of the sweep-frozen table, packed by the launcher's first kernel into
+// one record a (chain, word) (`pack_topic_index`: 16 bytes at T <= 16).
+// The half_warp variant loads a position's record one step ahead, beside
+// its row of logs, and draws with `draw_topic_sparse_half` (the gather a
+// shuffle within the half); the warp variant copies a word's record into
+// its stage (cp.async) while the token before it draws and draws with
+// `draw_topic_sparse`.
+// Everything else is the dense kernel.
 #include "slda_common.cuh"
 
 namespace slda {
@@ -69,7 +74,7 @@ namespace slda {
 // warp
 
 template <int K, bool SPARSE>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kWarpsPerBlock * 32, 1)
 gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
                    const float* __restrict__ mask,     // [M, D, N]
                    const float* __restrict__ uniforms, // [M, D, N]
@@ -84,17 +89,16 @@ gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
                    float* __restrict__ ndt_out,        // [M, D, T]
                    int D, int N, int T, int W, float alpha, float beta,
                    float w_beta, float rho, int supervised,
-                   const int* __restrict__ idx,        // [M, W, cap]
-                   const float* __restrict__ vmask,    // [M, W, cap]
-                   const float* __restrict__ occm,     // [M, W, T]
-                   int cap) {
+                   const uint32_t* __restrict__ rec,   // [M, W, rw]
+                   int cap, int stride) {
+  extern __shared__ float warp_stage[];  // `stride` floats a warp
   const int lane = threadIdx.x & 31;
   const int d = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (d >= D) return;  // warp-uniform
   const int c = blockIdx.y;
-  __shared__ float stage[kWarpsPerBlock]
-                        [SPARSE ? 2 * kMaxTopics + 16 : kMaxTopics];
-  float* sp = stage[threadIdx.x >> 5];
+  float* sp = warp_stage + (threadIdx.x >> 5) * stride;
+  const int rw = SPARSE ? rec_words(T, cap) : 0;
+  const uint32_t* recs = rec + static_cast<size_t>(c) * W * rw;
   const size_t row = static_cast<size_t>(c) * D + d;
   const float* table = ntw_t + static_cast<size_t>(c) * W * T;
   const float* eta_c = eta + static_cast<size_t>(c) * T;
@@ -113,6 +117,7 @@ gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
   const float yd = y[row];
   const float il = inv_len[row];
 
+  int rb = 0;  // the stage's record buffer of the token drawn next
   for (int n0 = 0; n0 < N; n0 += 32) {
     const int n = n0 + lane;
     const bool in = n < N;
@@ -122,6 +127,13 @@ gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
     const float u_l = in ? uniforms[at] : 0.f;
     int z_l = in ? z[at] : 0;
     unsigned real = __ballot_sync(kFull, m_l > 0.f);
+    // the record of the chunk's first real token (on the chain), then
+    // each next one's while this token draws
+    if constexpr (SPARSE) {
+      const int w0 = __shfl_sync(kFull, w_l, real ? __ffs(real) - 1 : 0);
+      fetch_record(stage_record(sp, T, cap, rb),
+                   recs + static_cast<size_t>(w0) * rw, lane, rw, real != 0);
+    }
     while (real) {  // real tokens of this chunk, in document order
       const int j = __ffs(real) - 1;
       real &= real - 1;
@@ -129,6 +141,12 @@ gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
       const float m = __shfl_sync(kFull, m_l, j);
       const int z_old = __shfl_sync(kFull, z_l, j);
       const float u = __shfl_sync(kFull, u_l, j);
+      if constexpr (SPARSE) {
+        const int wn = __shfl_sync(kFull, w_l, real ? __ffs(real) - 1 : 0);
+        fetch_record(stage_record(sp, T, cap, rb ^ 1),
+                     recs + static_cast<size_t>(wn) * rw, lane, rw,
+                     real != 0);
+      }
       s = s - eta_c[z_old] * m;
       const float* trow = table + static_cast<size_t>(w) * T;
       float lp[K];
@@ -158,9 +176,10 @@ gibbs_sweep_kernel(const int* __restrict__ tokens,     // [M, D, N]
         p[k] = lane + 32 * k < T ? expf(lp[k] - mx) : 0.f;
       int z_new;
       if constexpr (SPARSE) {
-        const size_t r = static_cast<size_t>(c) * W + w;
-        z_new = draw_topic_sparse<K>(p, u, lane, T, sp, idx + r * cap,
-                                     vmask + r * cap, occm + r * T, cap);
+        record_wait<1>();  // this token's record (the next one's in flight)
+        z_new = draw_topic_sparse<K>(p, u, lane, T, cap, sp,
+                                     stage_record(sp, T, cap, rb));
+        rb ^= 1;
       } else {
         z_new = draw_topic<K>(p, u, lane, T, sp);
       }
@@ -202,6 +221,7 @@ __global__ void gibbs_log_table_kernel(const float* __restrict__ ntw_t,
 // 2·gw + grp of chain blockIdx.y, topic t in its lane t (T <= 16), one
 // position a step up to the last real token of the warp's two
 // documents; a padding position's step changes nothing.
+template <bool SPARSE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 gibbs_half_kernel(const int* __restrict__ tokens,     // [M, D, N]
                   const float* __restrict__ mask,     // [M, D, N]
@@ -217,12 +237,14 @@ gibbs_half_kernel(const int* __restrict__ tokens,     // [M, D, N]
                   int* __restrict__ z_out,            // [M, D, N]
                   float* __restrict__ ndt_out,        // [M, D, T]
                   int D, int N, int T, int W, float alpha, float beta,
-                  float w_beta, float rho, int supervised) {
+                  float w_beta, float rho, int supervised,
+                  const uint4* __restrict__ rec,      // [M, W] records
+                  int cap) {
   constexpr int G = 16;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int grp = lane / G, gl = lane % G, shift = grp * G;
-  __shared__ float stage[kWarpsPerBlock][32];
+  __shared__ float stage[kWarpsPerBlock][SPARSE ? 64 : 32];
   __shared__ float log_nd[kLogCounts];
   for (int k = threadIdx.x; k < kLogCounts; k += blockDim.x)
     log_nd[k] = logf(static_cast<float>(k) + alpha);
@@ -232,7 +254,8 @@ gibbs_half_kernel(const int* __restrict__ tokens,     // [M, D, N]
   const int d = d0 + grp;
   const bool has = d < D;  // the last warp may walk one document
   const int c = blockIdx.y;
-  float* sp = stage[warp] + G * grp;
+  float* sp = stage[warp] + (SPARSE ? 2 * G : G) * grp;
+  const uint4* recs = SPARSE ? rec + static_cast<size_t>(c) * W : nullptr;
   const size_t row = has ? static_cast<size_t>(c) * D + d : 0;
   const bool tv = gl < T;
   const float* table = ntw_t + static_cast<size_t>(c) * W * T;
@@ -264,8 +287,9 @@ gibbs_half_kernel(const int* __restrict__ tokens,     // [M, D, N]
 
   // Position n's word, mask, old topic and uniform (the same for the
   // group's lanes), read two positions ahead, and this lane's entries of
-  // its word's row of logs, read one position ahead: none depends on a
-  // draw, so no load is on the token chain.
+  // its word's row of logs (and, sparse, its word's record), read one
+  // position ahead: none depends on a draw, so no load is on the token
+  // chain.
   auto at = [&](int n, int& w, float& m, int& zz, float& u) {
     w = zz = 0;
     m = u = 0.f;
@@ -284,14 +308,19 @@ gibbs_half_kernel(const int* __restrict__ tokens,     // [M, D, N]
       l1 = __ldg(logs + r + T);      // log((x − 1) + β)
     }
   };
+  auto rec_of = [&](int w, float m) {
+    return SPARSE && m > 0.f ? __ldg(recs + w) : make_uint4(0u, 0u, 0u, 0u);
+  };
   int w_0, z_0, w_1, z_1;
   float m_0, u_0, m_1, u_1, l0_0, l1_0;
   at(0, w_0, m_0, z_0, u_0);
   at(1, w_1, m_1, z_1, u_1);
   logs_of(w_0, m_0, l0_0, l1_0);
+  uint4 rec_0 = rec_of(w_0, m_0);
   for (int n = 0; n < steps; ++n) {  // warp-uniform
     float l0_1, l1_1;
     logs_of(w_1, m_1, l0_1, l1_1);
+    const uint4 rec_1 = rec_of(w_1, m_1);
     int w_2, z_2;
     float m_2, u_2;
     at(n + 2, w_2, m_2, z_2, u_2);
@@ -329,7 +358,11 @@ gibbs_half_kernel(const int* __restrict__ tokens,     // [M, D, N]
     }
     const float mx = group_max<G>(l);
     const float p = tv ? expf(l - mx) : 0.f;
-    const int z_new = draw_topic_half(p, u_0, gl, T, sp, shift);
+    int z_new;
+    if constexpr (SPARSE)
+      z_new = draw_topic_sparse_half(p, u_0, gl, T, cap, sp, rec_0, shift);
+    else
+      z_new = draw_topic_half(p, u_0, gl, T, sp, shift);
     if (gl == z_new) nd = nd + m;
     st = st + eta_of<1, G>(eta_r, z_new) * m;
     if (has && gl == 0) zo[n] = m > 0.f ? z_new : z_old;
@@ -340,6 +373,7 @@ gibbs_half_kernel(const int* __restrict__ tokens,     // [M, D, N]
     u_0 = u_1;
     l0_0 = l0_1;
     l1_0 = l1_1;
+    rec_0 = rec_1;
     w_1 = w_2;
     m_1 = m_2;
     z_1 = z_2;
@@ -353,9 +387,10 @@ gibbs_half_kernel(const int* __restrict__ tokens,     // [M, D, N]
 
 }  // namespace slda
 
-// variant 0: warp (any T <= 256, dense or sparse); 1: half_warp (the
-// dense draw at T <= 16, with `ltab` [M, W, 2T] scratch for the table's
-// logs)
+// variant 0: warp (T <= 512); 1: half_warp (T <= 16, with `ltab`
+// [M, W, 2T] scratch for the table's logs).  A non-null idx is the sparse
+// draw over cap <= T slots: the launcher first packs (idx, vmask
+// [M, W, cap], occm [M, W, T]) into `rec` [M, W, rec_words(T, cap)].
 extern "C" int slda_gibbs_sweep_launch(
     const int* tokens, const float* mask, const float* uniforms, const int* z,
     const float* ndt, const float* y, const float* inv_len,
@@ -363,12 +398,20 @@ extern "C" int slda_gibbs_sweep_launch(
     float* ndt_out, int M, int D, int N, int T, int W, float alpha,
     float beta, float w_beta, float rho, int supervised, const int* idx,
     const float* vmask, const float* occm, int cap, int variant, float* ltab,
-    void* stream) {
+    uint32_t* rec, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool sparse = idx != nullptr;
+  if (T < 1 || T > slda::kMaxTopics ||
+      (sparse && (cap < 1 || cap > T || !vmask || !occm || !rec)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (sparse) {
+    const cudaError_t e = slda::pack_topic_index(
+        idx, vmask, occm, rec, static_cast<size_t>(M) * W, T, cap, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if (variant == 1) {
     // int offsets within a chain's [W, 2T] logs
-    if (idx || T < 1 || T > 16 || !ltab ||
-        static_cast<long long>(W) * 2 * T >= (1LL << 31))
+    if (T > 16 || !ltab || static_cast<long long>(W) * 2 * T >= (1LL << 31))
       return static_cast<int>(cudaErrorInvalidValue);
     const size_t n = static_cast<size_t>(M) * W * T;
     if (n) {
@@ -378,34 +421,44 @@ extern "C" int slda_gibbs_sweep_launch(
       if (e != cudaSuccess) return static_cast<int>(e);
     }
     const int docs = 2 * slda::kWarpsPerBlock;  // two documents a warp
-    slda::gibbs_half_kernel<<<dim3((D + docs - 1) / docs, M),
-                              slda::kWarpsPerBlock * 32, 0, st>>>(
-        tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, ltab, nt, eta,
-        z_out, ndt_out, D, N, T, W, alpha, beta, w_beta, rho, supervised);
+    const dim3 grid((D + docs - 1) / docs, M);
+    const uint4* rec4 = reinterpret_cast<const uint4*>(rec);
+#define SLDA_GIBBS_HALF(SPARSE)                                             \
+  slda::gibbs_half_kernel<SPARSE><<<grid, slda::kWarpsPerBlock * 32, 0,     \
+                                    st>>>(                                  \
+      tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, ltab, nt, eta,     \
+      z_out, ndt_out, D, N, T, W, alpha, beta, w_beta, rho, supervised,     \
+      rec4, cap)
+    if (sparse) SLDA_GIBBS_HALF(true);
+    else SLDA_GIBBS_HALF(false);
+#undef SLDA_GIBBS_HALF
     return static_cast<int>(cudaGetLastError());
   }
   if (variant != 0) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((D + slda::kWarpsPerBlock - 1) / slda::kWarpsPerBlock, M);
   const dim3 block(slda::kWarpsPerBlock * 32);
-  // a null idx is the dense draw; else the sparse one over cap <= T slots
+  // a warp's stage: p and its prefixes for the dense draw
+  // (`dense_stage_floats`), `sparse_stage_floats` for B4
 #define SLDA_GIBBS_AS(K, SPARSE)                                            \
-  slda::gibbs_sweep_kernel<K, SPARSE><<<grid, block, 0, st>>>(              \
-      tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, nt, eta, z_out,    \
-      ndt_out, D, N, T, W, alpha, beta, w_beta, rho, supervised, idx,       \
-      vmask, occm, cap)
+  do {                                                                      \
+    const int stride = SPARSE ? slda::sparse_stage_floats(T, cap)           \
+                              : slda::dense_stage_floats(T);                \
+    const size_t smem = sizeof(float) * slda::kWarpsPerBlock * stride;      \
+    if (smem > 48 * 1024) {                                                 \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          slda::gibbs_sweep_kernel<K, SPARSE>,                              \
+          cudaFuncAttributeMaxDynamicSharedMemorySize,                      \
+          static_cast<int>(smem));                                          \
+      if (e != cudaSuccess) return static_cast<int>(e);                     \
+    }                                                                       \
+    slda::gibbs_sweep_kernel<K, SPARSE><<<grid, block, smem, st>>>(         \
+        tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, nt, eta, z_out,  \
+        ndt_out, D, N, T, W, alpha, beta, w_beta, rho, supervised, rec,     \
+        cap, stride);                                                       \
+  } while (0)
 #define SLDA_GIBBS(K)                                                       \
-  if (idx) SLDA_GIBBS_AS(K, true); else SLDA_GIBBS_AS(K, false)
-  switch ((T + 31) / 32) {
-    case 1: SLDA_GIBBS(1); break;
-    case 2: SLDA_GIBBS(2); break;
-    case 3: SLDA_GIBBS(3); break;
-    case 4: SLDA_GIBBS(4); break;
-    case 5: SLDA_GIBBS(5); break;
-    case 6: SLDA_GIBBS(6); break;
-    case 7: SLDA_GIBBS(7); break;
-    case 8: SLDA_GIBBS(8); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (sparse) SLDA_GIBBS_AS(K, true); else SLDA_GIBBS_AS(K, false)
+  SLDA_FOR_K(T, SLDA_GIBBS)
 #undef SLDA_GIBBS
 #undef SLDA_GIBBS_AS
   return static_cast<int>(cudaGetLastError());

@@ -26,14 +26,15 @@
 // ballot).  Two variants, named by the wrapper:
 //
 // * cluster (the main path).  A doc block is split across a thread-block
-//   cluster of up to 8 CTAs of 16 warps on neighbouring SMs
+//   cluster of up to 8 CTAs of 16 warps (8 above T = 256) on neighbouring
+//   SMs
 //   (cudaLaunchKernelEx with a cluster dimension; Hopper only), so the
 //   grid grows from M·B CTAs to M·B·cluster.  Documents go to (CTA, warp,
 //   group) slots by a table the wrapper builds (`slda_train.slot_plan`):
-//   at T <= 16 (dense draw) each half-warp is a group that walks its own
-//   document, topic t in lane t of the half, with the max, prefix sum and
-//   ballot per half; else a group is the whole warp, topic t in lane
-//   t mod 32, slot t / 32, as before.  At the MD&A slice that is one
+//   at T <= 16 (dense or sparse draw) each half-warp is a group that
+//   walks its own document, topic t in lane t of the half, with the max,
+//   prefix sum and ballot per half; else a group is the whole warp, topic
+//   t in lane t mod 32, slot t / 32, as before.  At the MD&A slice that is one
 //   document a group where the replaced kernel walked about four a warp.
 //   The block's private table stays one copy per block in the global
 //   scratch `local` (271 KB at W = 4238, T = 16, more than an SM holds),
@@ -66,14 +67,19 @@
 // expression rounds as the plain version's separate tensor operations do.
 //
 // SPARSE instantiations (`sampler_mode="sparse"`, the TPU kernel's branch
-// at slda_train.py:179-187) draw through `draw_topic_sparse` against the
-// chain's LAUNCH-frozen topic index (idx, vmask [M, W, cap], occm
-// [M, W, T], built by the caller from the entry ntw_t): every doc block of
-// the chain reads the same index, which the between-sweep deltas never
-// touch.  They walk one document a warp in both variants.  The warp's
-// staging grows from K·32 to 2·K·32 + 16 floats, which keeps the static
-// shared memory under 48 KB (33.8 KB at K = 8 with 16 warps): the
-// residual reuses p's stage, and the prefix sums stay in registers.
+// at slda_train.py:179-187) draw through kernel B4 against the chain's
+// LAUNCH-frozen topic index (built by the caller from the entry ntw_t),
+// packed by the launcher's first kernel into one record a (chain, word)
+// (`pack_topic_index`: 16 bytes at T <= 16): every doc block of the chain
+// reads the same records, which the between-sweep deltas never touch.
+// The cluster variant walks them in its groups as the dense draw does (a
+// half-warp a document at T <= 16, `draw_topic_sparse_half`; a warp above,
+// `draw_topic_sparse`), each token's record gathered with its table row
+// (above T = 16 copied into the warp's stage by cp.async) while the token
+// before it draws; the block variant walks a warp a document and copies a
+// word's record into its stage while the token before it draws.  A warp's
+// stage is dynamic shared memory (`sparse_stage_floats` floats a warp
+// above T = 16: 53.5 KB an 8-warp CTA at T = 512, cap 32).
 
 #include <cooperative_groups.h>
 
@@ -85,7 +91,7 @@ namespace slda {
 // block
 
 template <int K, int WARPS, bool SPARSE>
-__global__ void __launch_bounds__(WARPS * 32)
+__global__ void __launch_bounds__(WARPS * 32, 1)
 train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
                     const float* __restrict__ mask,     // [M, D, N]
                     const int* __restrict__ seeds,      // [M, D]
@@ -103,16 +109,16 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
                     int D, int N, int T, int W, int doc_block, int n_sweeps,
                     int ctr_stride, float alpha, float beta, float w_beta,
                     float rho, int supervised, int product_form,
-                    const int* __restrict__ idx,        // [M, W, cap]
-                    const float* __restrict__ vmask,    // [M, W, cap]
-                    const float* __restrict__ occm,     // [M, W, T]
-                    int cap) {
+                    const uint32_t* __restrict__ rec,   // [M, W, rw]
+                    int cap, int stride) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x, c = blockIdx.y;
-  __shared__ float stage[WARPS][SPARSE ? 2 * K * 32 + 16 : K * 32];
+  extern __shared__ float warp_stage[];  // `stride` floats a warp
   __shared__ float nt_s[K * 32];
-  float* sp = stage[warp];
+  float* sp = warp_stage + warp * stride;
+  const int rw = SPARSE ? rec_words(T, cap) : 0;
+  const uint32_t* recs = rec + static_cast<size_t>(c) * W * rw;
   const int d0 = b * doc_block;
   const int d1 = min(d0 + doc_block, D);
   const float* eta_c = eta + static_cast<size_t>(c) * T;
@@ -137,6 +143,7 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
     eta_r[k] = t < T ? eta_c[t] : 0.f;
   }
 
+  int rb = 0;  // the stage's record buffer of the token drawn next
   const int* z_src = z0;
   for (int s = 0; s < n_sweeps; ++s) {
     // the last sweep writes z_out; earlier ones alternate with z_buf
@@ -174,6 +181,14 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
         const float m_l = in ? mask[at] : 0.f;
         int z_l = in ? z_src[at] : 0;
         unsigned real = __ballot_sync(kFull, m_l > 0.f);
+        // the record of the chunk's first real token (on the chain), then
+        // each next one's while this token draws
+        if constexpr (SPARSE) {
+          const int w0 = __shfl_sync(kFull, w_l, real ? __ffs(real) - 1 : 0);
+          fetch_record(stage_record(sp, T, cap, rb),
+                       recs + static_cast<size_t>(w0) * rw, lane, rw,
+                       real != 0);
+        }
         while (real) {  // real tokens of this chunk, in document order
           const int j = __ffs(real) - 1;
           real &= real - 1;
@@ -181,6 +196,13 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
           const float m = __shfl_sync(kFull, m_l, j);
           const int z_old = __shfl_sync(kFull, z_l, j);
           const float u = counter_uniform(seed, ctr0 + n0 + j);
+          if constexpr (SPARSE) {
+            const int wn =
+                __shfl_sync(kFull, w_l, real ? __ffs(real) - 1 : 0);
+            fetch_record(stage_record(sp, T, cap, rb ^ 1),
+                         recs + static_cast<size_t>(wn) * rw, lane, rw,
+                         real != 0);
+          }
           st = st - eta_c[z_old] * m;
           const float* trow = table + static_cast<size_t>(w) * T;
           float p[K];
@@ -238,9 +260,10 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
           }
           int z_new;
           if constexpr (SPARSE) {
-            const size_t r = static_cast<size_t>(c) * W + w;
-            z_new = draw_topic_sparse<K>(p, u, lane, T, sp, idx + r * cap,
-                                         vmask + r * cap, occm + r * T, cap);
+            record_wait<1>();  // this token's record (the next in flight)
+            z_new = draw_topic_sparse<K>(p, u, lane, T, cap, sp,
+                                         stage_record(sp, T, cap, rb));
+            rb ^= 1;
           } else {
             z_new = draw_topic<K>(p, u, lane, T, sp);
           }
@@ -287,12 +310,16 @@ train_sweeps_kernel(const int* __restrict__ tokens,     // [M, D, N]
 // cluster
 
 // G lanes draw one document (G = 16: two documents a warp, T <= 16, K =
-// 1; G = 32: one, K topics a lane); `slots` [B, cluster, WARPS, 32 / G,
-// per_slot] names each group's documents (-1: none).
-// At K = 1 two CTAs share an SM (64 registers a thread), so that the
-// sparse draw's 8-CTA clusters of the MD&A slice fit the card in one wave.
+// 1, dense or sparse; G = 32: one, K topics a lane); `slots` [B, cluster,
+// WARPS, 32 / G, per_slot] names each group's documents (-1: none).
+// Dynamic shared memory: each warp's stage, `stride` floats.
+// At K = 1 two CTAs share an SM (64 registers a thread), so that a doc
+// block's 8-CTA cluster fits the card in one wave at T <= 32; the sparse
+// half-warp draw's token (its 16-byte record twice) needs more, and its
+// clusters are half as wide, so it keeps one CTA an SM.
 template <int K, int WARPS, bool SPARSE, int G>
-__global__ void __launch_bounds__(WARPS * 32, K == 1 ? 2 : 1)
+__global__ void __launch_bounds__(WARPS * 32,
+                                  K == 1 && !(SPARSE && G == 16) ? 2 : 1)
 train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
                      const float* __restrict__ mask,     // [M, D, N]
                      const int* __restrict__ seeds,      // [M, D]
@@ -310,12 +337,15 @@ train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
                      int D, int N, int T, int W, int n_sweeps,
                      int ctr_stride, float alpha, float beta, float w_beta,
                      float rho, int supervised, int product_form,
-                     const int* __restrict__ idx,        // [M, W, cap]
-                     const float* __restrict__ vmask,    // [M, W, cap]
-                     const float* __restrict__ occm,     // [M, W, T]
-                     int cap, const int* __restrict__ slots, int per_slot) {
-  static_assert(G == 32 || (G == 16 && K == 1 && !SPARSE), "groups");
+                     const uint32_t* __restrict__ rec,   // [M, W, rw]
+                     int cap, const int* __restrict__ slots, int per_slot,
+                     int stride) {
+  static_assert(G == 32 || (G == 16 && K == 1), "groups");
   constexpr int NG = 32 / G;  // documents a warp walks at once
+  // a token's record words a lane holds: the whole 16-byte record in a
+  // half-warp group (T <= 16); a warp's tokens' records go to its stage
+  // (`fetch_record`), in its two buffers by turns
+  constexpr int RN = G == 16 ? 4 : 1;
   namespace cg = cooperative_groups;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -325,11 +355,14 @@ train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
   const int grp = lane / G, gl = lane % G, shift = grp * G;
   const int b = blockIdx.x / cs, c = blockIdx.y;
   const int n_blocks = gridDim.x / cs;
-  __shared__ float stage[WARPS][SPARSE ? 2 * K * 32 + 16 : K * 32];
+  extern __shared__ float warp_stage[];
   __shared__ float nt_s[K * 32];  // the first CTA: the cluster's nt; others
                                   // a copy of it for the sweep
   __shared__ float nt_d[K * 32];  // this CTA's nt deltas of a sweep
-  float* sp = stage[warp] + (G == 16 ? 16 * grp : 0);
+  float* sp = warp_stage + warp * stride +
+              (G == 16 ? (SPARSE ? 32 : 16) * grp : 0);
+  const int rw = SPARSE ? rec_words(T, cap) : 0;
+  const uint32_t* recs = rec + static_cast<size_t>(c) * W * rw;
   float* nt_master = cluster.map_shared_rank(nt_s, 0);
   const float* eta_c = eta + static_cast<size_t>(c) * T;
   const size_t table_size = static_cast<size_t>(W) * T;
@@ -397,9 +430,10 @@ train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
 
       // The window of G positions at n0 (words, masks, topics a lane) and
       // its real tokens.  `cur` is the token this group draws next, its
-      // lane, word, mask, old topic and η, uniform and table row gathered
-      // while the token before it drew: none of them depends on this
-      // sweep's draws (the block's table is frozen within a sweep).
+      // lane, word, mask, old topic and η, uniform, table row and (sparse)
+      // record gathered while the token before it drew: none of them
+      // depends on this sweep's draws (the block's table and the index are
+      // frozen within a sweep).
       int w_l = 0, z_l = 0;
       float m_l = 0.f;
       if (has && gl < N) {
@@ -410,15 +444,19 @@ train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
       }
       unsigned bits = group_bits<G>(__ballot_sync(kFull, m_l > 0.f), shift);
       struct Tok {
-        int j, w, z_old;
+        int j, w, z_old, rb;
         float m, eta_old, u, row[K];
+        uint32_t rec[RN];
       };
       // the first token of `b` among the lane values (wv, mv, zv) of the
-      // window at `base`; every lane calls it (it shuffles), and a group
-      // with no token (b == 0) loads nothing
-      auto peek = [&](unsigned b, int wv, float mv, int zv, int base) {
+      // window at `base`, its record (G = 32) copied to the stage's buffer
+      // rb; every lane calls it (it shuffles and commits a copy group), and
+      // a group with no token (b == 0) loads nothing
+      auto peek = [&](unsigned b, int wv, float mv, int zv, int base,
+                      int rb) {
         Tok k_;
         k_.j = b ? __ffs(b) - 1 : 0;
+        k_.rb = rb;
         k_.w = __shfl_sync(kFull, wv, k_.j, G);
         k_.m = __shfl_sync(kFull, mv, k_.j, G);
         k_.z_old = __shfl_sync(kFull, zv, k_.j, G);
@@ -430,13 +468,31 @@ train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
           const int t = gl + G * k;
           k_.row[k] = b && t < T ? __ldcg(r + t) : 0.f;
         }
+#pragma unroll
+        for (int q = 0; q < RN; ++q) k_.rec[q] = 0u;
+        if constexpr (SPARSE) {
+          const uint32_t* rr = recs + static_cast<size_t>(k_.w) * rw;
+          if constexpr (G == 16) {
+            if (b) {
+              const uint4 v = __ldg(reinterpret_cast<const uint4*>(rr));
+              k_.rec[0] = v.x;
+              k_.rec[1] = v.y;
+              k_.rec[2] = v.z;
+              k_.rec[3] = v.w;
+            }
+          } else {
+            fetch_record(stage_record(sp, T, cap, rb), rr, gl, rw, b != 0);
+          }
+        }
         return k_;
       };
       Tok cur;
+      cur.rb = 1;
       bool have = false;  // cur is this window's first token already
       for (int n0 = 0; n0 < N; n0 += G) {  // warp-uniform
         {
-          const Tok first = peek(have ? 0u : bits, w_l, m_l, z_l, n0);
+          const Tok first =
+              peek(have ? 0u : bits, w_l, m_l, z_l, n0, cur.rb ^ 1);
           if (!have) cur = first;
           have = false;
         }
@@ -460,7 +516,8 @@ train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
           const bool more = rest != 0;
           const Tok nxt = peek(more ? rest : (have ? 0u : nreal),
                                more ? w_l : w_n, more ? m_l : m_n,
-                               more ? z_l : z_n, more ? n0 : n0 + G);
+                               more ? z_l : z_n, more ? n0 : n0 + G,
+                               cur.rb ^ 1);
           const float m = cv ? cur.m : 0.f;  // an idle group changes nothing
           const int z_old = cur.z_old;
           st = st - cur.eta_old * m;
@@ -518,11 +575,15 @@ train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
               p[k] = gl + G * k < T ? expf(lp[k] - mx) : 0.f;
           }
           int z_new;
-          if constexpr (SPARSE) {
-            const size_t r = static_cast<size_t>(c) * W + cur.w;
-            z_new = draw_topic_sparse<K>(p, cur.u, lane, T, sp,
-                                         idx + r * cap, vmask + r * cap,
-                                         occm + r * T, cap);
+          if constexpr (SPARSE && G == 16) {
+            z_new = draw_topic_sparse_half(
+                p[0], cur.u, gl, T, cap, sp,
+                make_uint4(cur.rec[0], cur.rec[1], cur.rec[2], cur.rec[3]),
+                shift);
+          } else if constexpr (SPARSE) {
+            record_wait<1>();  // cur's record (nxt's in flight)
+            z_new = draw_topic_sparse<K>(p, cur.u, lane, T, cap, sp,
+                                         stage_record(sp, T, cap, cur.rb));
           } else if constexpr (G == 16) {
             z_new = draw_topic_half(p[0], cur.u, gl, T, sp, shift);
           } else {
@@ -595,6 +656,10 @@ train_cluster_kernel(const int* __restrict__ tokens,     // [M, D, N]
 
 }  // namespace slda
 
+// variant 0: block; 1: cluster, with the wrapper's slot plan.  A
+// non-null idx is the sparse draw over cap <= T slots: the launcher first
+// packs (idx, vmask [M, W, cap], occm [M, W, T]) into `rec`
+// [M, W, rec_words(T, cap)].
 extern "C" int slda_train_sweeps_launch(
     const int* tokens, const float* mask, const int* seeds, const int* z0,
     const float* ndt0, const float* y, const float* inv_len,
@@ -604,50 +669,62 @@ extern "C" int slda_train_sweeps_launch(
     float beta, float w_beta, float rho, int supervised, int product_form,
     const int* idx, const float* vmask, const float* occm, int cap,
     int variant, const int* slots, int cluster, int groups, int per_slot,
-    void* stream) {
+    uint32_t* rec, void* stream) {
   const int n_blocks = (D + doc_block - 1) / doc_block;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int K = (T + 31) / 32;
-  if (K < 1 || K > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const bool sparse = idx != nullptr;
+  if (T < 1 || T > slda::kMaxTopics ||
+      (sparse && (cap < 1 || cap > T || !vmask || !occm || !rec)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (sparse) {
+    const cudaError_t e = slda::pack_topic_index(
+        idx, vmask, occm, rec, static_cast<size_t>(M) * W, T, cap, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // a warp's stage: p and its prefixes for the dense draw
+  // (`dense_stage_floats`), `sparse_stage_floats` for B4
+  // (a half-warp group: 16 floats a half dense, 32 sparse)
+  auto stride_of = [&](int G) {
+    if (G == 16) return sparse ? 64 : 32;
+    return sparse ? slda::sparse_stage_floats(T, cap)
+                  : slda::dense_stage_floats(T);
+  };
   if (variant == 0) {
-    // block: one CTA per (chain, doc block); a null idx is the dense
-    // draw, else the sparse one over cap <= T slots
+    // block: one CTA per (chain, doc block), 32 warps up to T = 64, 16 up
+    // to T = 256, else 8 (255 registers a thread for K = 16 slots)
     const dim3 grid(n_blocks, M);
-#define SLDA_TRAIN_AS(K, WARPS, SPARSE)                                     \
-  slda::train_sweeps_kernel<K, WARPS, SPARSE>                               \
-      <<<grid, (WARPS) * 32, 0, st>>>(                                      \
-          tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta, z_out, \
-          ndt_out, z_buf, local, D, N, T, W, doc_block, n_sweeps,           \
-          ctr_stride, alpha, beta, w_beta, rho, supervised, product_form,   \
-          idx, vmask, occm, cap)
-#define SLDA_TRAIN(K, WARPS)                                                \
-  if (idx) SLDA_TRAIN_AS(K, WARPS, true);                                   \
-  else SLDA_TRAIN_AS(K, WARPS, false)
-    switch (K) {
-      case 1: SLDA_TRAIN(1, 32); break;
-      case 2: SLDA_TRAIN(2, 32); break;
-      case 3: SLDA_TRAIN(3, 16); break;
-      case 4: SLDA_TRAIN(4, 16); break;
-      case 5: SLDA_TRAIN(5, 16); break;
-      case 6: SLDA_TRAIN(6, 16); break;
-      case 7: SLDA_TRAIN(7, 16); break;
-      case 8: SLDA_TRAIN(8, 16); break;
-    }
+#define SLDA_TRAIN_AS(K, SPARSE)                                            \
+  do {                                                                      \
+    constexpr int kW = K <= 2 ? 32 : K <= 8 ? 16 : 8;                       \
+    const size_t smem = sizeof(float) * kW * stride_of(32);                 \
+    if (smem > 48 * 1024) {                                                 \
+      const cudaError_t e = cudaFuncSetAttribute(                           \
+          slda::train_sweeps_kernel<K, kW, SPARSE>,                         \
+          cudaFuncAttributeMaxDynamicSharedMemorySize,                      \
+          static_cast<int>(smem));                                          \
+      if (e != cudaSuccess) return static_cast<int>(e);                     \
+    }                                                                       \
+    slda::train_sweeps_kernel<K, kW, SPARSE><<<grid, kW * 32, smem, st>>>(  \
+        tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta, z_out,   \
+        ndt_out, z_buf, local, D, N, T, W, doc_block, n_sweeps, ctr_stride, \
+        alpha, beta, w_beta, rho, supervised, product_form, rec, cap,       \
+        stride_of(32));                                                     \
+  } while (0)
+#define SLDA_TRAIN(K)                                                       \
+  if (sparse) SLDA_TRAIN_AS(K, true); else SLDA_TRAIN_AS(K, false)
+    SLDA_FOR_K(T, SLDA_TRAIN)
 #undef SLDA_TRAIN
 #undef SLDA_TRAIN_AS
     return static_cast<int>(cudaGetLastError());
   }
-  // cluster: `slots` [n_blocks, cluster, 16 warps, groups, per_slot] from
-  // the wrapper's plan; two groups a warp only for the dense draw at
-  // T <= 16
+  // cluster: `slots` [n_blocks, cluster, warps, groups, per_slot] from the
+  // wrapper's plan, 16 warps a CTA up to T = 256, else 8 (255 registers a
+  // thread for K = 16 slots); two groups a warp at T <= 16
   if (variant != 1 || !slots || cluster < 1 || cluster > 8 || per_slot < 1 ||
-      !(groups == 1 || (groups == 2 && T <= 16 && !idx)))
+      !(groups == 1 || (groups == 2 && T <= 16)))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kWarps = 16;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(n_blocks * cluster, M);
-  cfg.blockDim = dim3(kWarps * 32);
-  cfg.dynamicSmemBytes = 0;
   cfg.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -656,29 +733,37 @@ extern "C" int slda_train_sweeps_launch(
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e;
+  cudaError_t e = cudaSuccess;
 #define SLDA_CLUSTER_AS(K, SPARSE, G)                                       \
-  e = cudaLaunchKernelEx(                                                   \
-      &cfg, slda::train_cluster_kernel<K, kWarps, SPARSE, G>, tokens, mask, \
-      seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta, z_out, ndt_out, z_buf,   \
-      local, D, N, T, W, n_sweeps, ctr_stride, alpha, beta, w_beta, rho,    \
-      supervised, product_form, idx, vmask, occm, cap, slots, per_slot)
+  do {                                                                      \
+    constexpr int kWarps = K <= 8 ? 16 : 8;                                 \
+    const int stride = stride_of(G);                                        \
+    cfg.blockDim = dim3(kWarps * 32);                                       \
+    cfg.dynamicSmemBytes = sizeof(float) * kWarps * stride;                 \
+    if (cfg.dynamicSmemBytes > 48 * 1024) {                                 \
+      e = cudaFuncSetAttribute(                                             \
+          slda::train_cluster_kernel<K, kWarps, SPARSE, G>,                 \
+          cudaFuncAttributeMaxDynamicSharedMemorySize,                      \
+          static_cast<int>(cfg.dynamicSmemBytes));                          \
+      if (e != cudaSuccess) return static_cast<int>(e);                     \
+    }                                                                       \
+    e = cudaLaunchKernelEx(                                                 \
+        &cfg, slda::train_cluster_kernel<K, kWarps, SPARSE, G>, tokens,     \
+        mask, seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta, z_out, ndt_out,  \
+        z_buf, local, D, N, T, W, n_sweeps, ctr_stride, alpha, beta,        \
+        w_beta, rho, supervised, product_form,                              \
+        static_cast<const uint32_t*>(rec), cap, slots, per_slot, stride);   \
+  } while (0)
 #define SLDA_CLUSTER(K)                                                     \
-  if (idx) SLDA_CLUSTER_AS(K, true, 32);                                    \
-  else SLDA_CLUSTER_AS(K, false, 32)
-  switch (K) {
-    case 1:
-      if (groups == 2) SLDA_CLUSTER_AS(1, false, 16);
-      else SLDA_CLUSTER(1);
-      break;
-    case 2: SLDA_CLUSTER(2); break;
-    case 3: SLDA_CLUSTER(3); break;
-    case 4: SLDA_CLUSTER(4); break;
-    case 5: SLDA_CLUSTER(5); break;
-    case 6: SLDA_CLUSTER(6); break;
-    case 7: SLDA_CLUSTER(7); break;
-    default: SLDA_CLUSTER(8); break;
+  if (K == 1 && groups == 2) {                                              \
+    if (sparse) SLDA_CLUSTER_AS(1, true, 16);                               \
+    else SLDA_CLUSTER_AS(1, false, 16);                                     \
+  } else if (sparse) {                                                      \
+    SLDA_CLUSTER_AS(K, true, 32);                                           \
+  } else {                                                                  \
+    SLDA_CLUSTER_AS(K, false, 32);                                          \
   }
+  SLDA_FOR_K(T, SLDA_CLUSTER)
 #undef SLDA_CLUSTER
 #undef SLDA_CLUSTER_AS
   if (e != cudaSuccess) return static_cast<int>(e);

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.mathutil import upper_tri_ones
+from repro_torch.mathutil import prefix_sum, upper_tri_ones
 from .prng import counter_uniform, predict_uniforms
 from .sparse import gather_index_rows, two_stage_draw
 
@@ -35,8 +35,9 @@ sparse_tally = {"tokens": 0, "stage2": 0}
 
 
 def _draw(p, u, tri_u):
-    """Inverse-CDF categorical draw: z = #{t : (p @ triu)_t < u·Σp}."""
-    c = p @ tri_u
+    """Inverse-CDF categorical draw: z = #{t : (p @ triu)_t < u·Σp}, the
+    prefix summed left to right (`mathutil.prefix_sum`)."""
+    c = prefix_sum(p, tri_u)
     return (c < (u * c[:, -1])[:, None]).sum(-1).to(torch.int32)
 
 
@@ -167,7 +168,7 @@ def ref_slda_train_sweeps_chains(tokens, mask, uniforms, z0, ndt0, y,
                                  inv_len, ntw_t, nt, eta, alpha, beta, rho,
                                  supervised: bool, doc_block: int, *,
                                  product_form: bool = False,
-                                 topic_index=None):
+                                 topic_index=None, blocks=None):
     """Chain-batched fused training with EXPLICIT uniforms (plain B3).
 
     tokens/mask/z0 [M, D, N]; uniforms [M, D, S, N] (S sweeps); ndt0
@@ -184,7 +185,9 @@ def ref_slda_train_sweeps_chains(tokens, mask, uniforms, z0, ndt0, y,
     reassignments land on its copy and nt grows by the column sum of its
     ndt deltas.  The sparse draw's `topic_index` is launch-frozen: built
     from the entry ntw_t, shared by every block of the chain, never
-    rebuilt from the blocks' private copies."""
+    rebuilt from the blocks' private copies.  `blocks` (table [M, B, W, T],
+    nt [M, B, T], `block_tables`) starts the blocks from private tables
+    other than copies of (ntw_t, nt): a launch's state part way."""
     M, D, S, N = uniforms.shape
     W, T = ntw_t.shape[-2:]
     pad = (-D) % doc_block
@@ -196,9 +199,11 @@ def ref_slda_train_sweeps_chains(tokens, mask, uniforms, z0, ndt0, y,
     block = torch.arange(R, device=tokens.device) // doc_block
     tok_f = tokens.reshape(R, N).long() + (block * W)[:, None]
     mask_f, u_f = mask.reshape(R, N), uniforms.reshape(R, S, N)
-    table = ntw_t[:, None].expand(M, copies // M, W, T).reshape(
-        copies * W, T).clone()
-    nt_loc = nt[:, None].expand(M, copies // M, T).reshape(copies, T)
+    if blocks is None:
+        blocks = (ntw_t[:, None].expand(M, copies // M, W, T),
+                  nt[:, None].expand(M, copies // M, T))
+    table = blocks[0].reshape(copies * W, T).clone()
+    nt_loc = blocks[1].reshape(copies, T)
     eta_rows = eta[:, None].expand(M, D + pad, T).reshape(R, T)
     z, ndt = z0.reshape(R, N), ndt0.reshape(R, T)
     y_f, il_f = y.reshape(R), inv_len.reshape(R)
@@ -234,6 +239,54 @@ def slda_train_sweeps_chains(tokens, mask, seeds, z0, ndt0, y, inv_len,
         tokens, mask, u.reshape(M, D, n_sweeps, N), z0, ndt0, y, inv_len,
         ntw_t, nt, eta, alpha, beta, rho, supervised, doc_block,
         product_form=product_form, topic_index=topic_index)
+
+
+def block_tables(tokens, mask, z0, z, ntw_t, nt, doc_block: int):
+    """The private tables the doc blocks of a fused launch hold once their
+    documents have moved from z0 to z: each block's copy of its chain's
+    launch-start ntw_t [M, W, T] and nt [M, T] plus the block's own ±1
+    reassignments (integers: exact in any order).  tokens / mask / z0 / z
+    [M, D, N].  Returns (table [M, B, W, T], nt [M, B, T]), B = ⌈D /
+    doc_block⌉."""
+    M, D, N = tokens.shape
+    W, T = ntw_t.shape[-2:]
+    B = -(-D // doc_block)
+    dev = tokens.device
+    blk = (torch.arange(M, device=dev)[:, None] * B
+           + torch.arange(D, device=dev)[None, :] // doc_block)
+    blk = blk[..., None].expand(M, D, N)
+    changed = mask * (z != z0).to(mask.dtype)
+    zo, zn = z0.long(), z.long()
+    table = ntw_t[:, None].expand(M, B, W, T).reshape(M * B * W, T).clone()
+    rows = blk * W + tokens.long()
+    table.index_put_((rows, zo), -changed, accumulate=True)
+    table.index_put_((rows, zn), changed, accumulate=True)
+    nt_b = nt[:, None].expand(M, B, T).reshape(M * B, T).clone()
+    nt_b.index_put_((blk, zo), -changed, accumulate=True)
+    nt_b.index_put_((blk, zn), changed, accumulate=True)
+    return table.reshape(M, B, W, T), nt_b.reshape(M, B, T)
+
+
+def slda_train_sweep_from(tokens, mask, seeds, z0, z, ndt, y, inv_len,
+                          ntw_t, nt, eta, *, sweep: int, alpha, beta, rho,
+                          doc_block, supervised=True, product_form=False,
+                          ctr_stride=None, topic_index=None):
+    """Sweep `sweep` (from 0) of a fused launch alone, from the state the
+    launch holds before it: (z, ndt) the assignments and counts after the
+    sweeps before it, the launch's start z0 and tables (ntw_t, nt), and
+    the block-local tables they imply (`block_tables`); the uniforms are
+    that sweep's, counter_uniform(seeds[c, d], sweep·ctr_stride + n).
+    Shapes as `slda_train_sweeps_chains`.  Returns (z_new, ndt_new)."""
+    M, D, N = tokens.shape
+    stride = N if ctr_stride is None else ctr_stride
+    ctr = (sweep * stride
+           + torch.arange(N, dtype=torch.int64, device=tokens.device))
+    u = counter_uniform(seeds[..., None, None], ctr)
+    return ref_slda_train_sweeps_chains(
+        tokens, mask, u, z, ndt, y, inv_len, ntw_t, nt, eta, alpha, beta,
+        rho, supervised, doc_block, product_form=product_form,
+        topic_index=topic_index,
+        blocks=block_tables(tokens, mask, z0, z, ntw_t, nt, doc_block))
 
 
 def _predict_rows(tok_f, mask_f, z0_f, ndt0_f, table_t, alpha, n_burnin,

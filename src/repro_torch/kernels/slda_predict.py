@@ -4,9 +4,10 @@
 replaces the TPU kernel `_predict_kernel` of the reference
 (`repro/kernels/slda_predict.py`); the note at the head of the source
 says what bounds it and what each variant's design does about that.
-`variant` picks the variant: `lane` (a document a lane, the dense draw
-at T <= 16, over `lane_layout`'s transposed corpus) on the main path,
-else `warp` (a warp a document), the kernel the lane variant replaced.
+`variant` picks the variant: `lane` (a document a lane at T <= 16,
+dense or sparse, over `lane_layout`'s transposed corpus) on the main
+path, else `warp` (a warp a document), the kernel the lane variant
+replaced.
 The plain version is `ref.slda_predict_sweeps_chains`.  `launches`
 counts the kernel's launches and nothing else, `variant_launches` the
 same launches by variant; `sparse_launches` counts those of them that
@@ -19,28 +20,31 @@ import ctypes
 import numpy as np
 import torch
 
-from . import build
+from . import build, sparse as _sparse
 
 launches = 0
 sparse_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = ([_P] * 8 + [_I] * 5 + [_F, _I, _I, _I, _F] + [_P] * 3 + [_I, _I]
-         + [_P] * 3)
+         + [_P] * 4)
 # the C launcher's numbering
 VARIANTS = ("warp", "lane")
 variant_launches = dict.fromkeys(VARIANTS, 0)
+MAX_TOPICS = _sparse.MAX_TOPICS
 # topics a lane holds; positions a document may have on the lane variant
-# (4 warps' z, one byte a token, in 227 KB of shared memory)
+# (4 warps' z, one byte a token, in 227 KB of shared memory; for the
+# sparse draw beside 4 warps' [17][32]-float gather stages)
 LANE_TOPICS = 16
 LANE_MAX_N = 232448 // (4 * 32)
+LANE_MAX_N_SPARSE = (232448 - 4 * (LANE_TOPICS + 1) * 32 * 4) // (4 * 32)
 
 
 def variant(T: int, sparse: bool, N: int) -> str:
     """The variant the main path runs at T topics, N positions a
-    document: `lane` for the dense draw at T <= 16, else `warp`."""
-    if not sparse and T <= LANE_TOPICS and N <= LANE_MAX_N:
-        return "lane"
-    return "warp"
+    document: `lane` at T <= 16 (dense or sparse) where the document's z
+    fits shared memory, else `warp`."""
+    max_n = LANE_MAX_N_SPARSE if sparse else LANE_MAX_N
+    return "lane" if T <= LANE_TOPICS and N <= max_n else "warp"
 
 
 def lane_layout(tokens, mask):
@@ -73,16 +77,18 @@ def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
             ("ndt0", ndt0, torch.float32, (M, D, T)),
             ("phi_t", phi_t, torch.float32, (M, W, T))):
         build.check_operand(name, t, dtype, shape, dev)
-    if not 1 <= T <= 256:
-        raise ValueError(f"the prediction kernel takes 1 <= T <= 256, got {T}")
+    if not 1 <= T <= MAX_TOPICS:
+        raise ValueError(f"the prediction kernel takes 1 <= T <= "
+                         f"{MAX_TOPICS}, got {T}")
     index = build.topic_index_operands(topic_index, M, W, T, dev)
     sparse = topic_index is not None
     kind = kernel_variant or variant(T, sparse, N)
     if kind not in VARIANTS:
         raise ValueError(f"slda_predict: no {kind} variant")
     if kind == "lane" and variant(T, sparse, N) != "lane":
-        raise ValueError(f"slda_predict: the lane variant draws dense at "
-                         f"T <= {LANE_TOPICS}, N <= {LANE_MAX_N}")
+        raise ValueError(f"slda_predict: the lane variant draws at "
+                         f"T <= {LANE_TOPICS}, N <= {LANE_MAX_N} "
+                         f"({LANE_MAX_N_SPARSE} sparse)")
     ndt_avg = torch.empty_like(ndt0)
     z_out = torch.empty_like(z0)
     if M * D == 0:
@@ -90,6 +96,7 @@ def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
     launch = build.bind("slda_predict", "slda_predict_sweeps_launch", _ARGS)
     layout = lane_layout(tokens, mask) if kind == "lane" else ()
     ptrs = [t.data_ptr() for t in layout] or [0, 0]
+    rec = _sparse.record_scratch(topic_index, M, W, T, dev)
     with build.on_device(dev):
         rc = launch(tokens.data_ptr(), mask.data_ptr(), seeds.data_ptr(),
                     z0.data_ptr(), ndt0.data_ptr(), phi_t.data_ptr(),
@@ -97,7 +104,9 @@ def slda_predict_sweeps_cuda(tokens, mask, seeds, z0, ndt0, phi_t, *, alpha,
                     float(alpha), int(n_burnin), int(n_samples),
                     int(N if ctr_stride is None else ctr_stride),
                     float(np.float32(1.0 / n_samples)), *index,
-                    VARIANTS.index(kind), *ptrs, build.stream_of(dev))
+                    VARIANTS.index(kind), *ptrs,
+                    0 if rec is None else rec.data_ptr(),
+                    build.stream_of(dev))
     build.check_launch("slda_predict", rc)
     launches += 1
     variant_launches[kind] += 1

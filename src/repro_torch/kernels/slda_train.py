@@ -19,42 +19,52 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, sparse as _sparse
 
 launches = 0
 sparse_launches = 0
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGS = ([_P] * 14 + [_I] * 8 + [_F] * 4 + [_I, _I] + [_P] * 3 + [_I, _I, _P]
-         + [_I] * 3 + [_P])
+         + [_I] * 3 + [_P, _P])
 # the C launcher's numbering
 VARIANTS = ("block", "cluster")
 variant_launches = dict.fromkeys(VARIANTS, 0)
-# warps a CTA of the cluster variant, CTAs a cluster at most (the portable
+# warps a CTA of the cluster variant (up to T = 256; half above, where a
+# thread holds 16 topic slots), CTAs a cluster at most (the portable
 # limit), topics a half-warp group draws at most
 WARPS = 16
 MAX_CLUSTER = 8
 HALF_WARP_TOPICS = 16
-_plans: dict = {}          # (D, doc_block, T, sparse, device) -> slots
+MAX_TOPICS = _sparse.MAX_TOPICS
 
 
-def slot_plan(D: int, doc_block: int, T: int, *, sparse: bool = False):
+def cta_warps(T: int) -> int:
+    """Warps a CTA of the cluster variant at T topics, as the C launcher
+    picks them."""
+    return WARPS if T <= 256 else WARPS // 2
+_plans: dict = {}          # (D, doc_block, T, device) -> slots
+
+
+def slot_plan(D: int, doc_block: int, T: int):
     """The cluster variant's assignment of documents to lanes: (cluster,
     slots) with `cluster` the CTAs that share a doc block (at most 8) and
     `slots` int32 [n_blocks, cluster, WARPS, groups, per_slot] the
     documents (indices into the chain's D) each group of lanes walks in
-    turn, -1 where none.  A group is a half-warp (two documents a warp)
-    for the dense draw at T <= 16, else a whole warp.  Each document is
+    turn, -1 where none, `warps` = `cta_warps(T)`.  A group is a half-warp
+    (two documents a warp) at T <= 16, for the dense and the sparse draw
+    alike, else a whole warp.  Each document is
     taken once, by a slot of its own block's cluster; the i-th document
     of a block goes to slot i mod S (S slots a cluster: CTA fastest, then
     warp, then group), so a block short of documents fills every CTA's
     first group before any second one."""
-    groups = 2 if T <= HALF_WARP_TOPICS and not sparse else 1
+    groups = 2 if T <= HALF_WARP_TOPICS else 1
+    warps = cta_warps(T)
     n_blocks = -(-D // doc_block)
     width = min(doc_block, D)                  # the fullest block's docs
-    cluster = min(MAX_CLUSTER, -(-width // (WARPS * groups)))
-    n_slots = cluster * WARPS * groups
+    cluster = min(MAX_CLUSTER, -(-width // (warps * groups)))
+    n_slots = cluster * warps * groups
     per_slot = -(-width // n_slots)
-    slots = torch.full((n_blocks, per_slot, groups, WARPS, cluster), -1,
+    slots = torch.full((n_blocks, per_slot, groups, warps, cluster), -1,
                        dtype=torch.int32)
     flat = slots.view(n_blocks, -1)
     for b in range(n_blocks):
@@ -65,19 +75,18 @@ def slot_plan(D: int, doc_block: int, T: int, *, sparse: bool = False):
     return cluster, slots.permute(0, 4, 3, 2, 1).contiguous()
 
 
-def walks(D: int, doc_block: int, T: int, variant: str, *,
-          sparse: bool = False):
+def walks(D: int, doc_block: int, T: int, variant: str):
     """The documents each group of lanes of `variant` draws in turn, int64
     [walks, per_walk] (-1: none): the cluster variant's slots
     (`slot_plan`), or the block variant's warps (warp w of a block walks
-    its documents w, w + warps, ...; 32 warps a CTA up to T = 64, else
-    16, as the C launcher picks them)."""
+    its documents w, w + warps, ...; 32 warps a CTA up to T = 64, 16 up
+    to T = 256, else 8, as the C launcher picks them)."""
     if variant == "cluster":
-        _, slots = slot_plan(D, doc_block, T, sparse=sparse)
+        _, slots = slot_plan(D, doc_block, T)
         return slots.reshape(-1, slots.shape[-1]).long()
     if variant != "block":
         raise ValueError(f"slda_train: no {variant} variant")
-    warps = 32 if T <= 64 else 16
+    warps = 32 if T <= 64 else 16 if T <= 256 else 8
     per = -(-min(doc_block, D) // warps)
     out = torch.full((-(-D // doc_block), per, warps), -1)
     for b in range(out.shape[0]):
@@ -86,11 +95,11 @@ def walks(D: int, doc_block: int, T: int, variant: str, *,
     return out.transpose(1, 2).reshape(-1, per)
 
 
-def _slots_on(D, doc_block, T, sparse, dev):
-    key = (D, doc_block, T, sparse, dev)
+def _slots_on(D, doc_block, T, dev):
+    key = (D, doc_block, T, dev)
     plan = _plans.get(key)
     if plan is None:
-        cluster, slots = slot_plan(D, doc_block, T, sparse=sparse)
+        cluster, slots = slot_plan(D, doc_block, T)
         plan = _plans[key] = (cluster, slots.to(dev))
     return plan
 
@@ -125,8 +134,9 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
             ("nt", nt, torch.float32, (M, T)),
             ("eta", eta, torch.float32, (M, T))):
         build.check_operand(name, t, dtype, shape, dev)
-    if not 1 <= T <= 256:
-        raise ValueError(f"the training kernel takes 1 <= T <= 256, got {T}")
+    if not 1 <= T <= MAX_TOPICS:
+        raise ValueError(f"the training kernel takes 1 <= T <= "
+                         f"{MAX_TOPICS}, got {T}")
     if n_sweeps < 1 or doc_block < 1:
         raise ValueError(f"n_sweeps={n_sweeps}, doc_block={doc_block}")
     if kernel_variant not in VARIANTS:
@@ -144,9 +154,9 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
                         device=dev) if fused else None
     plan = (0, 0, 0, 0)
     if kernel_variant == "cluster":
-        cluster, slots = _slots_on(D, doc_block, T, topic_index is not None,
-                                   dev)
+        cluster, slots = _slots_on(D, doc_block, T, dev)
         plan = (slots.data_ptr(), cluster, slots.shape[3], slots.shape[4])
+    rec = _sparse.record_scratch(topic_index, M, W, T, dev)
     ptr = lambda t: 0 if t is None else t.data_ptr()
     launch = build.bind("slda_train", "slda_train_sweeps_launch", _ARGS)
     with build.on_device(dev):
@@ -156,7 +166,8 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
             int(n_sweeps), int(N if ctr_stride is None else ctr_stride),
             float(alpha), float(beta), float(W * beta), float(rho),
             int(supervised), int(product_form), *index,
-            VARIANTS.index(kernel_variant), *plan, build.stream_of(dev))
+            VARIANTS.index(kernel_variant), *plan, ptr(rec),
+            build.stream_of(dev))
     build.check_launch("slda_train", rc)
     launches += 1
     variant_launches[kernel_variant] += 1

@@ -17,8 +17,11 @@ distribution.  With the identity index (`idx = arange(T)`, `cap = T`,
 `vmask = occm = 1`) the residual is exactly zero and the draw is bit for
 bit the dense draw.  The operation order is the reference's
 (`repro.kernels.sparse`); the CUDA kernels run the same three prefix
-sums left to right (`csrc/slda_common.cuh`, `draw_topic_sparse`), and
-`sparse_two_stage_draw_cuda` runs that device function alone on the card.
+sums left to right (`csrc/slda_common.cuh`: `draw_topic_sparse` in the
+warp layout, `draw_topic_sparse_lane` and `draw_topic_sparse_half` where
+a lane or a half-warp draws a document at T <= 16), reading the index as
+one packed record a word (`pack_topic_index`), and
+`sparse_two_stage_draw_cuda` runs each form alone on the card.
 """
 from __future__ import annotations
 
@@ -30,7 +33,83 @@ from repro_torch.mathutil import upper_tri_ones
 from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = [_P] * 6 + [_I] * 3 + [_P]
+_ARGS = [_P] * 7 + [_I] * 4 + [_P]
+_PACK_ARGS = [_P] * 4 + [_I] * 3 + [_P]
+MAX_TOPICS = 512
+# the standalone launcher's numbering; lane and half_warp at T <= 16
+VARIANTS = ("warp", "lane", "half_warp")
+LANE_TOPICS = 16
+
+
+def draw_variant(T: int) -> str:
+    """The form of the draw most of the samplers' sparse launches run at T
+    topics: up to 16 topics `half_warp` (B2's and B3's; B1's one launch a
+    prediction runs `lane`, the same bits), else `warp`."""
+    return "half_warp" if T <= LANE_TOPICS else "warp"
+
+
+def record_layout(n_topics: int, cap: int) -> tuple[int, int, int, int]:
+    """The packed record of a word's index at T topics and cap slots, in
+    32-bit words: (ib, ow, vw, rw) with ib the bits of a topic number (4 at
+    T <= 16, 8 at T <= 256, else 16), occm in words [0, ow), vmask in
+    [ow, ow + vw), the topic numbers from ow + vw, and rw the words of a
+    record (a multiple of 4: 16 bytes at T <= 16).  `csrc/slda_common.cuh`
+    (`rec_words`) computes the same."""
+    ib = 4 if n_topics <= 16 else 8 if n_topics <= 256 else 16
+    ow, vw = -(-n_topics // 32), -(-cap // 32)
+    iw = -(-(cap * ib) // 32)
+    return ib, ow, vw, (ow + vw + iw + 3) // 4 * 4
+
+
+def _flag_words(flags, n_words):
+    """bool [..., L] as int64 32-bit words [..., n_words], flag l at bit
+    l % 32 of word l // 32."""
+    pad = n_words * 32 - flags.shape[-1]
+    f = torch.nn.functional.pad(flags.long(), (0, pad))
+    f = f.reshape(f.shape[:-1] + (n_words, 32))
+    return (f << torch.arange(32, device=f.device)).sum(-1)
+
+
+def pack_topic_index(idx, vmask, occm):
+    """The kernels' packed record of each row of an index: idx int32 /
+    vmask f32 [..., cap] and occm f32 [..., T] → int32 [..., rw]
+    (`record_layout`).  A flag is set where vmask or occm is not 0:
+    `topic_occupancy_index` makes both exactly 0 or 1, so the kernels'
+    selects on these bits draw what the plain version's products draw.
+    It is the plain version of the packing each sparse launch runs on the
+    card first (`pack_topic_index_cuda`)."""
+    t_dim, cap = occm.shape[-1], idx.shape[-1]
+    ib, ow, vw, rw = record_layout(t_dim, cap)
+    per = 32 // ib
+    iw = -(-cap // per)
+    ix = torch.nn.functional.pad(idx.long() & ((1 << ib) - 1),
+                                 (0, iw * per - cap))
+    ix = ix.reshape(ix.shape[:-1] + (iw, per))
+    ix = (ix << (ib * torch.arange(per, device=ix.device))).sum(-1)
+    words = torch.cat([_flag_words(occm != 0, ow), _flag_words(vmask != 0, vw),
+                       ix], -1)
+    words = torch.nn.functional.pad(words, (0, rw - words.shape[-1]))
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def unpack_topic_index(rec, n_topics: int, cap: int):
+    """`pack_topic_index` read back: rec int32 [..., rw] → (idx int32,
+    vmask f32 [..., cap], occm f32 [..., T])."""
+    ib, ow, vw, rw = record_layout(n_topics, cap)
+    if rec.shape[-1] != rw:
+        raise ValueError(f"record of {rec.shape[-1]} words, expected {rw}")
+    w = rec.long() & 0xFFFFFFFF
+
+    def field(words, width, count):
+        per = 32 // width
+        v = (words[..., None] >> (width * torch.arange(per, device=w.device))
+             ) & ((1 << width) - 1)
+        return v.reshape(v.shape[:-2] + (-1,))[..., :count]
+    occm = field(w[..., :ow], 1, n_topics).float()
+    vmask = field(w[..., ow:ow + vw], 1, cap).float()
+    idx = field(w[..., ow + vw:], ib, cap).to(torch.int32)
+    return idx, vmask, occm
 
 
 def residual_blocks(n_topics: int) -> tuple[int, int]:
@@ -97,33 +176,80 @@ def two_stage_draw(p, u, idx, vmask, occm):
     return torch.where(in_s, z_s, z_r).to(torch.int32), ~in_s
 
 
-def sparse_two_stage_draw_cuda(p, u, idx, vmask, occm):
-    """The CUDA kernels' device function `draw_topic_sparse` alone, one
-    warp per row: p f32 [R, T], u f32 [R], idx int32 / vmask f32
-    [R, cap], occm f32 [R, T], on the card.  Returns int32 z [R], on the
-    current stream.  It is the check and the time of the draw by itself;
-    the sampler kernels run it inside their token loop."""
-    R, T = p.shape
+def _check_index(idx, vmask, occm, rows, T, dev):
     cap = idx.shape[-1]
-    if not 1 <= cap <= T <= 256:
-        raise ValueError(f"the sparse draw takes 1 <= cap <= T <= 256, "
-                         f"got cap={cap}, T={T}")
-    dev = p.device
+    if not 1 <= cap <= T <= MAX_TOPICS:
+        raise ValueError(f"the sparse draw takes 1 <= cap <= T <= "
+                         f"{MAX_TOPICS}, got cap={cap}, T={T}")
     for name, t, dtype, shape in (
-            ("p", p, torch.float32, (R, T)), ("u", u, torch.float32, (R,)),
-            ("idx", idx, torch.int32, (R, cap)),
-            ("vmask", vmask, torch.float32, (R, cap)),
-            ("occm", occm, torch.float32, (R, T))):
+            ("idx", idx, torch.int32, (rows, cap)),
+            ("vmask", vmask, torch.float32, (rows, cap)),
+            ("occm", occm, torch.float32, (rows, T))):
         build.check_operand(name, t, dtype, shape, dev)
+    return cap
+
+
+def sparse_two_stage_draw_cuda(p, u, idx, vmask, occm, *,
+                               kernel_variant=None):
+    """Kernel B4 alone on the card: p f32 [R, T], u f32 [R], idx int32 /
+    vmask f32 [R, cap], occm f32 [R, T].  The launch packs the index rows
+    into records, then draws a row a lane (`lane`), a half-warp
+    (`half_warp`; both at T <= 16) or a warp (`warp`), the forms the
+    sampler kernels run inside their token loop; `kernel_variant` None is
+    `draw_variant(T)`.  Returns int32 z [R], on the current stream.  It is
+    the check and the time of the draw by itself."""
+    R, T = p.shape
+    dev = p.device
+    cap = _check_index(idx, vmask, occm, R, T, dev)
+    for name, t, dtype, shape in (
+            ("p", p, torch.float32, (R, T)), ("u", u, torch.float32, (R,))):
+        build.check_operand(name, t, dtype, shape, dev)
+    kind = kernel_variant or draw_variant(T)
+    if kind not in VARIANTS:
+        raise ValueError(f"sparse draw: no {kind} variant")
+    if kind != "warp" and T > LANE_TOPICS:
+        raise ValueError(f"sparse draw: the {kind} variant draws at "
+                         f"T <= {LANE_TOPICS}")
     z = torch.empty(R, dtype=torch.int32, device=dev)
     if R == 0:
         return z
+    rec = torch.empty((R, record_layout(T, cap)[3]), dtype=torch.int32,
+                      device=dev)
     launch = build.bind("slda_predict", "slda_sparse_draw_launch", _ARGS)
     with build.on_device(dev):
-        rc = launch(*(t.data_ptr() for t in (p, u, idx, vmask, occm, z)),
-                    R, T, cap, build.stream_of(dev))
+        rc = launch(*(t.data_ptr() for t in (p, u, idx, vmask, occm, rec, z)),
+                    R, T, cap, VARIANTS.index(kind), build.stream_of(dev))
     build.check_launch("slda_predict", rc)
     return z
+
+
+def pack_topic_index_cuda(idx, vmask, occm):
+    """The sparse launches' first kernel alone: `pack_topic_index` of
+    idx int32 / vmask f32 [R, cap] and occm f32 [R, T] on the card."""
+    R, T = occm.shape
+    dev = occm.device
+    cap = _check_index(idx, vmask, occm, R, T, dev)
+    rec = torch.empty((R, record_layout(T, cap)[3]), dtype=torch.int32,
+                      device=dev)
+    if R == 0:
+        return rec
+    launch = build.bind("slda_predict", "slda_pack_topic_index_launch",
+                        _PACK_ARGS)
+    with build.on_device(dev):
+        rc = launch(idx.data_ptr(), vmask.data_ptr(), occm.data_ptr(),
+                    rec.data_ptr(), R, T, cap, build.stream_of(dev))
+    build.check_launch("slda_predict", rc)
+    return rec
+
+
+def record_scratch(topic_index, M: int, W: int, T: int, device):
+    """The records a sparse launch packs its index into (int32
+    [M, W, rw]), or None for the dense draw."""
+    if topic_index is None:
+        return None
+    cap = topic_index[0].shape[-1]
+    return torch.empty((M, W, record_layout(T, cap)[3]), dtype=torch.int32,
+                       device=device)
 
 
 def build_topic_index(table_t, cap: int):

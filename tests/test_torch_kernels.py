@@ -271,7 +271,7 @@ def test_sampler_kernel_variants_refuse_cpu_tensors(module, variant):
     CPU tensors it tries to build for a card there is none of, counts no
     launch, by variant or at all, and runs no plain version in its
     place; an unknown variant, or the new one where it does not apply
-    (the sparse draw, T > 16), is refused before any build."""
+    (T > 16), is refused before any build."""
     if module is slda_predict:
         a = [torch.from_numpy(x) for x in _predict_inputs(0, 2, 6, 8, 20, 7)]
         kw = dict(alpha=ALPHA, n_burnin=1, n_samples=1)
@@ -290,7 +290,7 @@ def test_sampler_kernel_variants_refuse_cpu_tensors(module, variant):
     with pytest.raises(ValueError, match="no block variant"):
         call(*a, kernel_variant="block", **kw)
     new = module.VARIANTS[1]
-    with pytest.raises(ValueError, match=f"the {new} variant draws dense"):
+    with pytest.raises(ValueError, match=f"the {new} variant draws at"):
         call(*wide, kernel_variant=new, **kw)
     assert module.launches == n
     assert module.variant_launches == by_variant
@@ -301,6 +301,24 @@ def test_ops_refuse_other_devices():
          _gibbs_inputs(0, 1, 4, 8, 20, 6)]
     with pytest.raises(ValueError, match="no sampler kernel"):
         ops.slda_gibbs_sweep(*a, alpha=ALPHA, beta=BETA, rho=RHO)
+
+
+@pytest.mark.parametrize("T", [16, 256, 300, 512])
+def test_plain_prefix_sum_is_left_to_right(T):
+    """The plain draw's prefix sum is the left-to-right float32 chain the
+    kernels compute, bit for bit, on the CPU, past 256 topics too (where
+    one GEMM p @ triu(T) on the card sums in another order), and is the
+    GEMM itself up to 256 topics."""
+    from repro_torch.mathutil import prefix_sum, upper_tri_ones
+    rng = np.random.default_rng(T)
+    p = torch.from_numpy(rng.random((300, T), dtype=np.float32) ** 8)
+    s, seq = torch.zeros(300), torch.empty_like(p)
+    for t in range(T):
+        s = s + p[:, t]
+        seq[:, t] = s
+    assert torch.equal(prefix_sum(p), seq)
+    if T <= 256:
+        assert torch.equal(prefix_sum(p), p @ upper_tri_ones(T))
 
 
 def test_build_targets_hopper_without_fast_math():
@@ -315,6 +333,7 @@ def test_build_targets_hopper_without_fast_math():
     (slda_gibbs, "slda_gibbs", "slda_gibbs_sweep_launch"),
     (slda_train, "slda_train", "slda_train_sweeps_launch"),
     (sparse, "slda_predict", "slda_sparse_draw_launch"),
+    (sparse, "slda_predict", "slda_pack_topic_index_launch"),
     (flash_attention, "flash_attention", "flash_attention_launch"),
     (ssd_scan, "ssd_scan", "ssd_scan_launch"),
     (rmsnorm, "rmsnorm", "rmsnorm_launch")])
@@ -330,4 +349,6 @@ def test_ctypes_argtypes_match_the_c_launchers(module, stem, fn):
     want = [ctypes.c_void_p if "*" in p else
             ctypes.c_float if p.split()[0] == "float" else ctypes.c_int
             for p in params.split(",")]
-    assert module._ARGS == want
+    args = module._PACK_ARGS if fn == "slda_pack_topic_index_launch" \
+        else module._ARGS
+    assert args == want

@@ -13,7 +13,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import slda_gibbs, slda_predict
+from repro_torch.kernels import slda_gibbs, slda_predict, slda_train
+from repro_torch.kernels import sparse as sparse_mod
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -36,24 +37,33 @@ def _chip_smoke():
 SMOKE = _chip_smoke()
 
 
-@pytest.mark.parametrize("T", [1, 3, 16, 17, 40, 128, 256])
+@pytest.mark.parametrize("T", [1, 3, 16, 17, 40, 128, 256, 512])
 @pytest.mark.parametrize("sparse", [False, True])
 def test_variant_choice_over_topics_and_mode(T, sparse):
-    """The dense draw at T <= 16 runs the new variants (a document a lane
-    for B1, a half-warp for B2); the sparse draw and larger T the warp
-    variant they replaced."""
-    dense_small = not sparse and T <= 16
+    """At T <= 16 the main path runs the new variants, for the dense and
+    the sparse draw alike (a document a lane for B1, a half-warp for B2,
+    two half-warp groups a warp for B3's cluster variant, B4's half-warp
+    form alone); larger T the warp variants they replaced (whole-warp
+    groups)."""
+    small = T <= 16
     assert slda_predict.variant(T, sparse, 120) == (
-        "lane" if dense_small else "warp")
-    assert slda_gibbs.variant(T, sparse) == (
-        "half_warp" if dense_small else "warp")
+        "lane" if small else "warp")
+    assert slda_gibbs.variant(T) == (
+        "half_warp" if small else "warp")
+    _, slots = slda_train.slot_plan(300, 128, T)
+    assert slots.shape[3] == (2 if small else 1)
+    assert sparse_mod.draw_variant(T) == ("half_warp" if small else "warp")
 
 
 def test_lane_variant_takes_documents_whose_z_fits_shared_memory():
-    """Four warps' z, a byte a token, in 227 KB: N up to 1816."""
+    """Four warps' z, a byte a token, in 227 KB: N up to 1816; beside the
+    sparse draw's four [17][32]-float gather stages (8.5 KB), 1748."""
     assert slda_predict.LANE_MAX_N == 1816
     assert slda_predict.variant(16, False, 1816) == "lane"
     assert slda_predict.variant(16, False, 1817) == "warp"
+    assert slda_predict.LANE_MAX_N_SPARSE == 1748
+    assert slda_predict.variant(16, True, 1748) == "lane"
+    assert slda_predict.variant(16, True, 1749) == "warp"
 
 
 def test_variants_are_numbered_as_the_launchers_take_them():

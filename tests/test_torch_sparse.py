@@ -35,7 +35,8 @@ from repro_torch.core.plan import build_plan
 from repro_torch.kernels import (build, ops, ref, slda_gibbs, slda_predict,
                                  slda_train, sparse)
 from repro_torch.kernels.prng import predict_uniforms
-from repro_torch.kernels.sparse import residual_blocks, sparse_two_stage_draw
+from repro_torch.kernels.sparse import (pack_topic_index, residual_blocks,
+                                        sparse_two_stage_draw)
 from repro_torch.mathutil import upper_tri_ones
 # the EM-loop helpers and the corpus of the port's other tests
 from test_torch_parallel import _ref_predict_draws, _ref_train_draws
@@ -86,12 +87,14 @@ def _random_index(rng, r, t, cap):
     return idx, vmask, occm
 
 
-@pytest.mark.parametrize("cap", [1, 2, 8, 32])
-@pytest.mark.parametrize("t", [3, 16, 40, 128])
+@pytest.mark.parametrize("t,cap", [
+    (t, cap) for cap in (1, 2, 8, 32) for t in (3, 16, 40, 128)]
+    + [(512, 32)])
 def test_draw_matches_reference(t, cap):
     """Identical (p, u, idx, vmask, occm) through both draws: a random
     index, a stale index (another table's), and the fresh index of a
-    count table; T = 3 and 40 are not multiples of the residual block."""
+    count table; T = 3 and 40 are not multiples of the residual block,
+    T = 512 is the top of the reference's sparse grid."""
     rng = np.random.default_rng(t * 100 + cap)
     cap = min(cap, t)
     r, w = 3000, 64
@@ -115,6 +118,93 @@ def test_draw_matches_reference(t, cap):
         assert z_p.dtype == torch.int32
         assert int(z_p.min()) >= 0 and int(z_p.max()) < t
         assert rate <= MISMATCH_MAX
+
+
+def _model_index(rng, r, t, cap, fresh):
+    """An index of r rows: a count table's own (`fresh`), else distinct
+    random topics with random valid slots and their membership mask."""
+    if fresh:
+        counts = (rng.integers(0, 4, (r, t))
+                  * (rng.random((r, t)) < 0.3)).astype(np.float32)
+        return types.topic_occupancy_index(torch.from_numpy(counts), cap)
+    return tuple(map(torch.from_numpy, _random_index(rng, r, t, cap)))
+
+
+def _f32(x):
+    return np.float32(x)
+
+
+def _record_draw_model(p, u, rec, t, cap):
+    """The lane / half-warp form of the draw at T <= 16 as a plain loop in
+    float32: the bucket sv_i = p[idx_i] where vmask's bit i is set, else
+    0; the residual r_t = 0 where occm's bit t is set, else p_t; each sum
+    left to right over 16 positions padded with zeros; the residual one
+    block (blk = T), so its total is the block total and stage 2's
+    remainder is tgt - q_s.  The counts are taken both as the half-warp
+    takes them (slots below cap, topics below T) and as the lane takes
+    them (all 16, the clamps alone bounding them); returns both topics
+    and whether stage 2 drew."""
+    om, vm = int(rec[0]) & 0xFFFFFFFF, int(rec[1]) & 0xFFFFFFFF
+    nib = (int(rec[2]) & 0xFFFFFFFF) | (int(rec[3]) & 0xFFFFFFFF) << 32
+
+    def topic(i):
+        return (nib >> (4 * i)) & 15
+    pad = [p[j] if j < t else _f32(0) for j in range(16)]
+    sv = [pad[topic(i)] if i < cap and vm >> i & 1 else _f32(0)
+          for i in range(16)]
+    rv = [_f32(0) if j < t and om >> j & 1 else pad[j] for j in range(16)]
+    cs, cf = [], []
+    a = b = _f32(0)
+    for i in range(16):              # zero-padded, left to right
+        a = _f32(a + sv[i])
+        b = _f32(b + rv[i])
+        cs.append(a)
+        cf.append(b)
+    q_s, q_r = cs[cap - 1], cf[t - 1]
+    tgt = _f32(u * _f32(q_s + q_r))
+    rem = _f32(tgt - q_s)
+    stage1 = tgt < q_s or q_r <= 0
+    out = []
+    for n_s, n_f in ((cap, t), (16, 16)):
+        ks = sum(1 for i in range(n_s) if cs[i] < tgt)
+        kf = sum(1 for j in range(n_f) if cf[j] < rem)
+        out.append(topic(min(ks, cap - 1)) if stage1 else min(kf, t - 1))
+    return out[0], out[1], not stage1
+
+
+@pytest.mark.parametrize("cap", [1, 2, 4, 16])
+@pytest.mark.parametrize("t", [1, 3, 16])
+def test_lane_and_half_warp_model_is_the_reference_draw(t, cap):
+    """Identical (p, u, idx, vmask, occm) through the loop model on the
+    packed record (with the half-warp's guarded counts and the lane's
+    unguarded ones), the reference's draw (jitted, as its tests run it)
+    and the port's plain version: the same topic on every row, bit for
+    bit, with stage 2 taken on some rows (where the index misses mass)."""
+    cap = min(cap, t)
+    rng = np.random.default_rng(10 * t + cap)
+    r = 600
+    p = (rng.random((r, t), dtype=np.float32) ** 3).astype(np.float32)
+    p[rng.random((r, t)) < 0.2] = 0.0
+    u = rng.random(r, dtype=np.float32)
+    u[:60] = np.float32(1 - 2 ** -24)     # the largest uniform: tgt at q
+    idx, vm, om = _model_index(rng, r, t, cap, fresh=bool(t % 2))
+    rec = pack_topic_index(idx, vm, om).numpy()
+    # the reference gets numpy copies: no buffer shared with torch
+    z_ref = np.asarray(jax.jit(j_draw)(
+        jnp.asarray(p), jnp.asarray(u), *(jnp.asarray(np.array(a))
+                                          for a in (idx, vm, om))))
+    z_port = sparse_two_stage_draw(torch.from_numpy(p), torch.from_numpy(u),
+                                   idx, vm, om).numpy()
+    model = [_record_draw_model(p[i], u[i], rec[i], t, cap) for i in range(r)]
+    z_half = np.array([z for z, _, _ in model])
+    z_lane = np.array([z for _, z, _ in model])
+    stage2 = sum(s for _, _, s in model)
+    print(f"T={t} cap={cap}: {stage2} of {r} rows took stage 2")
+    assert np.array_equal(z_half, z_ref)
+    assert np.array_equal(z_lane, z_ref)
+    assert np.array_equal(z_half, z_port)
+    if cap < t:
+        assert stage2 > 0
 
 
 def test_residual_blocks_match_reference():

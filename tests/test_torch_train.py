@@ -388,36 +388,100 @@ def test_fused_naive_combination_is_worse(fused_mses):
 
 
 
+# ----------------------------- one sweep of a fused launch from its state
+
+_HASH_ARGS = ("tokens", "mask", "seeds", "z0", "ndt0", "y", "inv_len",
+              "ntw_t", "nt", "eta")
+
+
+def test_block_tables_are_the_launch_start_plus_each_blocks_moves():
+    """The state a sweep of a fused launch starts from: each doc block's
+    table is its chain's launch-start table plus the counts of the block's
+    tokens under z less those under z0 (the last block short), and its
+    nt the column sums of the same."""
+    t, w, db = 6, 30, 4
+    a = _train_inputs(3, 2, 10, t, w, 12, 1)
+    rng = np.random.default_rng(4)
+    z = np.where(rng.random(a["z0"].shape) < 0.4,
+                 rng.integers(0, t, a["z0"].shape), a["z0"]).astype(np.int32)
+    table, nt_b = ref.block_tables(_t(a["tokens"]), _t(a["mask"]),
+                                   _t(a["z0"]), _t(z), _t(a["ntw_t"]),
+                                   _t(a["nt"]), db)
+    assert table.shape == (2, 3, w, t) and nt_b.shape == (2, 3, t)
+    for b in range(3):
+        docs = slice(b * db, (b + 1) * db)
+        blk = lambda x: _t(x[:, docs])                    # noqa: E731
+        _, ntw_new, nt_new = counts_from_assignments(
+            blk(a["tokens"]), blk(a["mask"]), blk(z), t, w)
+        _, ntw_old, nt_old = counts_from_assignments(
+            blk(a["tokens"]), blk(a["mask"]), blk(a["z0"]), t, w)
+        want = _t(a["ntw_t"]) + (ntw_new - ntw_old).transpose(1, 2)
+        assert torch.equal(table[:, b], want)
+        assert torch.equal(nt_b[:, b], _t(a["nt"]) + nt_new - nt_old)
+    same = ref.block_tables(_t(a["tokens"]), _t(a["mask"]), _t(a["z0"]),
+                            _t(a["z0"]), _t(a["ntw_t"]), _t(a["nt"]), db)
+    assert torch.equal(same[0], _t(a["ntw_t"])[:, None].expand_as(table))
+
+
+@pytest.mark.parametrize("sparse_draw", [False, True])
+@pytest.mark.parametrize("product_form", [False, True])
+def test_one_sweep_from_a_launch_state_is_that_sweep(product_form,
+                                                     sparse_draw):
+    """Sweep k of a fused launch, handed the state after sweeps 1..k-1
+    (z, ndt, the launch-start tables and the block tables they imply) and
+    sweep k's uniforms, draws what the launch of k sweeps draws, bit for
+    bit: the state `chip_smoke.py` hands the plain version to hold the
+    kernel sweep by sweep (D = 10 is not a multiple of the doc block)."""
+    t, w, db, n_sweeps = 8, 40, 4, 4
+    a = {k: _t(v) for k, v in _train_inputs(11, 2, 10, t, w, 12, 1).items()}
+    index = types.topic_occupancy_index(a["ntw_t"], 3) if sparse_draw \
+        else None
+    kw = dict(alpha=ALPHA, beta=BETA, rho=RHO, doc_block=db,
+              supervised=True, product_form=product_form, topic_index=index)
+    args = [a[k] for k in _HASH_ARGS]
+    z, ndt = a["z0"], a["ndt0"]
+    for k in range(1, n_sweeps + 1):
+        want = ref.slda_train_sweeps_chains(*args, n_sweeps=k, **kw)
+        got = ref.slda_train_sweep_from(
+            a["tokens"], a["mask"], a["seeds"], a["z0"], z, ndt, a["y"],
+            a["inv_len"], a["ntw_t"], a["nt"], a["eta"], sweep=k - 1, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        z, ndt = want
+    assert not torch.equal(z, a["z0"])
+
+
 # ------------------------------------------ kernel B3's slot assignment
 
-@pytest.mark.parametrize("D,doc_block,T,sparse", [
-    (750, 128, 16, False),     # the MD&A slice: 5 full blocks and 110
-    (256, 128, 128, False),    # T = 128: a warp a document
-    (300, 128, 16, False),     # a short last block of 44
-    (40, 40, 16, False),       # D below the configured doc block
-    (40, 128, 16, False),      # ... and the block wider than D
-    (750, 128, 16, True),      # the sparse draw walks a warp a document
-    (750, 128, 17, False),     # T just past a half-warp
-    (1000, 512, 16, False),    # a block wider than a cluster's groups
+@pytest.mark.parametrize("D,doc_block,T", [
+    (750, 128, 16),            # the MD&A slice: 5 full blocks and 110
+    (256, 128, 128),           # T = 128: a warp a document
+    (300, 128, 16),            # a short last block of 44
+    (40, 40, 16),              # D below the configured doc block
+    (40, 128, 16),             # ... and the block wider than D
+    (750, 128, 256),           # T = 256: 16 warps a CTA
+    (750, 128, 17),            # T just past a half-warp
+    (1000, 512, 16),           # a block wider than a cluster's groups
+    (256, 128, 512),           # T = 512: 8 warps a CTA
 ])
-def test_slot_plan_takes_each_document_once_in_its_block(D, doc_block, T,
-                                                         sparse):
+def test_slot_plan_takes_each_document_once_in_its_block(D, doc_block, T):
     """Every document of a chain is walked by exactly one group of lanes,
     in a CTA of its own block's cluster; clusters have at most 8 CTAs;
-    two documents a warp only for the dense draw at T <= 16; and no group
-    walks more documents than the block's width needs."""
+    two documents a warp at T <= 16, for the dense and the sparse draw;
+    16 warps a CTA up to T = 256, 8 above; and no group walks more
+    documents than the block's width needs."""
     from repro_torch.kernels import slda_train
-    cluster, slots = slda_train.slot_plan(D, doc_block, T, sparse=sparse)
-    groups = 2 if T <= 16 and not sparse else 1
+    cluster, slots = slda_train.slot_plan(D, doc_block, T)
+    groups = 2 if T <= 16 else 1
+    warps = slda_train.WARPS if T <= 256 else slda_train.WARPS // 2
+    assert slda_train.cta_warps(T) == warps
     n_blocks = -(-D // doc_block)
     width = min(doc_block, D)
     assert 1 <= cluster <= slda_train.MAX_CLUSTER
-    assert tuple(slots.shape[:4]) == (n_blocks, cluster, slda_train.WARPS,
-                                      groups)
+    assert tuple(slots.shape[:4]) == (n_blocks, cluster, warps, groups)
     assert slots.dtype == torch.int32
     per_slot = slots.shape[4]
-    assert per_slot == -(-width // (cluster * slda_train.WARPS * groups))
-    if width <= slda_train.MAX_CLUSTER * slda_train.WARPS * groups:
+    assert per_slot == -(-width // (cluster * warps * groups))
+    if width <= slda_train.MAX_CLUSTER * warps * groups:
         assert per_slot == 1               # one document a group
     taken = slots[slots >= 0]
     assert sorted(taken.tolist()) == list(range(D))
@@ -437,39 +501,41 @@ def test_slot_plan_fills_first_groups_first():
 
 
 @pytest.mark.parametrize("variant", ["cluster", "block"])
-@pytest.mark.parametrize("D,doc_block,T,sparse", [
-    (750, 128, 16, False),     # the MD&A slice
-    (256, 128, 128, False),    # T = 128: 16 warps a block CTA
-    (300, 128, 16, False),     # a short last block
-    (40, 128, 16, False),      # the block wider than D
-    (750, 128, 16, True),      # the sparse draw
+@pytest.mark.parametrize("D,doc_block,T", [
+    (750, 128, 16),            # the MD&A slice
+    (256, 128, 128),           # T = 128: 16 warps a block CTA
+    (300, 128, 16),            # a short last block
+    (40, 128, 16),             # the block wider than D
+    (750, 128, 512),           # T = 512: 8 warps a CTA
 ])
 def test_walks_take_each_document_once_in_its_block(variant, D, doc_block,
-                                                    T, sparse):
+                                                    T):
     """Each variant's walks hold every document of a chain once, each walk
     inside one doc block; the cluster variant's are its slot plan's."""
     from repro_torch.kernels import slda_train
-    walks = slda_train.walks(D, doc_block, T, variant, sparse=sparse)
+    walks = slda_train.walks(D, doc_block, T, variant)
     assert walks.dtype == torch.int64 and walks.dim() == 2
     assert sorted(walks[walks >= 0].tolist()) == list(range(D))
     for walk in walks:
         docs = walk[walk >= 0]
         assert (docs // doc_block == docs[:1] // doc_block).all()
     if variant == "cluster":
-        _, slots = slda_train.slot_plan(D, doc_block, T, sparse=sparse)
+        _, slots = slda_train.slot_plan(D, doc_block, T)
         assert torch.equal(walks, slots.reshape(-1, slots.shape[-1]).long())
 
 
 def test_block_walks_follow_the_launchers_warps():
     """The block variant's warp w walks w, w + warps, ... of its block,
-    with 32 warps a CTA up to T = 64 and 16 past it; the slice's longest
-    walk is 4 documents there and 1 on the cluster variant."""
+    with 32 warps a CTA up to T = 64, 16 up to T = 256 and 8 past it; the
+    slice's longest walk is 4 documents there and 1 on the cluster
+    variant."""
     from repro_torch.kernels import slda_train
     walks = slda_train.walks(750, 128, 16, "block")
     assert walks.shape == (6 * 32, 4)
     assert walks[3].tolist() == [3, 35, 67, 99]
     assert walks[32 + 1].tolist() == [129, 161, 193, 225]
     assert slda_train.walks(256, 128, 65, "block").shape == (2 * 16, 8)
+    assert slda_train.walks(256, 128, 257, "block").shape == (2 * 8, 16)
     cluster = slda_train.walks(750, 128, 16, "cluster")
     assert int((cluster >= 0).sum(-1).max()) == 1
     with pytest.raises(ValueError, match="no warp variant"):
