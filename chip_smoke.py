@@ -69,10 +69,12 @@ Phases, one JSON line each:
                  512 (T off the 16- and 32-topic grids, K = 1, 2, 4, 8,
                  16); where B1's or B2's main-path variant is not the warp
                  one, its draws and counts against the warp variant's
-  prefix_order   a report: at each shape [R, T] the plain samplers' prefix
-                 sums took in the rows above, the rows of random weights
-                 that one GEMM p @ triu(T), and `mathutil.prefix_sum`,
-                 sum out of left-to-right order (the kernels' order)
+  prefix_order   at each shape [R, T] the plain draws' prefix sums took in
+                 the rows above (the dense draw's and the sparse draw's
+                 three), the rows of random weights that
+                 `mathutil.prefix_sum` sums out of left-to-right order (the
+                 kernels' order; a gate: none), and beside them, reported,
+                 those that one GEMM p @ triu(T) does
   end_to_end     the paper's four algorithms at the slice's configuration
                  (`repro_torch.fig6_mdna`) through their entry points,
                  with the kernels' launch counts over that run, B1's and
@@ -85,11 +87,35 @@ Phases, one JSON line each:
   sparse_T512    one Simple Average run at sweeps_per_launch 8 on the
                  slice's corpus with T = 512, dense and sparse (cap 32):
                  train and predict ms, test MSE (finite), launch counts
+  end_to_end_binary  the four algorithms at Figure 7's configuration
+                 (`repro_torch.fig7_imdb`: 25,000 documents, binary labels)
+                 at sweeps_per_launch 1 and 8, dense, and sparse at 8: test
+                 accuracy beside the majority class's rate, phase times,
+                 launch counts by variant; Nonparallel, Simple and Weighted
+                 at or above BINARY_ACC_MIN, Naive below Simple
+  end_to_end_ragged  the four algorithms over the padded corpus against
+                 8 length buckets (`length_buckets`), at the slice at spl
+                 1 (dense and sparse) and 8 and at Figure 7 at spl 8; the
+                 bucketed run with the plan's choice of streams
+                 (`plan._streams_for`) and with the other choice for every
+                 launch: each schedule's widths, counts and padding,
+                 train / predict ms of every form and which launches went
+                 on streams, launches by variant (a launch a bucket: per
+                 sweep for B2, per launch for B3, per pass for B1, all on
+                 the main path's variants); at spl 1 every algorithm's ŷ
+                 bit for bit the padded run's, at spl 8 the padded
+                 phases' MSE or accuracy gates, and the swapped streams'
+                 ŷ the plan's
+  ragged_small_buckets  B1, B2 and B3 (sweep by sweep, at the plan's doc
+                 block) against their plain versions over 1 to 8 documents
+                 a chain, the tail bucket's shape, dense and sparse
   profile        one Simple Average run under torch.profiler, at each of
-                 the two settings and sparse at 8: device busy time, idle
-                 share, B3's share of the busy time and the kernels that
-                 take it (for sparse, also where the topic-index build's
-                 kernels rank)
+                 the two settings and sparse at 8, then over 8 length
+                 buckets at the slice at spl 1 and 8 and Figure 7 at 8
+                 beside Figure 7 padded: device busy time, idle share,
+                 B3's share of the busy time, the B1–B3 kernels' time and
+                 the kernels that take it (for sparse, also where the
+                 topic-index build's kernels rank)
   B5             the attention kernel against its plain version, bf16 and
                  f32 (`B5_SHAPES`): qwen3-1.7b's prefill (B 32, Hq 16 /
                  Hkv 8, Dh 128, Sq = Sk = 200 and 512) and decode (Sq 1,
@@ -195,6 +221,10 @@ SPILL_FREE_KERNELS = (
     *(f"{k}ILi{K}E" for K in (12, 16)
       for k in ("train_sweeps_kernel", "train_cluster_kernel")))
 MISMATCH_MAX = 1e-3
+# Figure 7's accuracy gate for Nonparallel, Simple and Weighted Average:
+# the reference's own run at scale 0.04 on the CPU gave 0.78, 0.86, 0.86
+# (Naive 0.71), so a port that learns the labels stays above 0.70
+BINARY_ACC_MIN = 0.70
 # the LM kernels' bf16 operations run at most at the dense bf16
 # tensor-core rate; float32 ones on the CUDA cores (TF32 stays off)
 PEAK_BF16_S = 989e12
@@ -1135,15 +1165,16 @@ def main() -> int:
         return out
 
     # the shapes [R, T] of the prefix sums the plain samplers take in the
-    # B1 to B3 rows below (read by the prefix_order phase after them)
+    # rows below, the dense draw's and the sparse draw's three (read by the
+    # prefix_order phase after them)
     prefix_shapes = set()
     plain_prefix_sum = ref.prefix_sum
 
-    def recorded_prefix_sum(p, tri_u=None):
-        prefix_shapes.add(tuple(p.shape))
-        return plain_prefix_sum(p, tri_u)
+    def recorded_prefix_sum(p):
+        prefix_shapes.add((p.numel() // max(p.shape[-1], 1), p.shape[-1]))
+        return plain_prefix_sum(p)
 
-    ref.prefix_sum = recorded_prefix_sum
+    ref.prefix_sum = sparse.prefix_sum = recorded_prefix_sum
 
     # ---- B1: prediction, shared corpus (the weighted pass: test + train)
     both = torch.cat([test.tokens, train.tokens]), \
@@ -1759,13 +1790,14 @@ def main() -> int:
             check(same1 and same2, f"small_shapes T={t} {mode}: draws "
                   f"differ from the replaced kernels'")
 
-    # ---- prefix_order: whether the plain draw's prefix sum is the kernels'
-    # left-to-right chain at the shapes the rows above handed it (a
-    # report): for each [R, T], the rows of random weights in which one
-    # GEMM p @ triu(T), and `mathutil.prefix_sum` (one GEMM up to 256
-    # topics, 128-column pieces past it), differ anywhere from one chain of
-    # float32 adds a row, column by column
-    ref.prefix_sum = plain_prefix_sum
+    # ---- prefix_order: whether the plain draws' prefix sums are the
+    # kernels' left-to-right chain at the shapes the rows above handed them
+    # (the dense draw's and the sparse draw's): for each [R, T], the rows
+    # of random weights in which `mathutil.prefix_sum` differs anywhere
+    # from one chain of float32 adds a row, column by column (a gate: none
+    # may), and beside it, reported, those in which one GEMM p @ triu(T),
+    # the reference's form, does
+    ref.prefix_sum = sparse.prefix_sum = plain_prefix_sum
     for r_rows, t in sorted(prefix_shapes, key=lambda rt: (rt[1], rt[0])):
         p = torch.rand((r_rows, t), device=dev, generator=gen) + 0.01
         chain, c = torch.empty_like(p), torch.zeros_like(p[:, 0])
@@ -1773,11 +1805,13 @@ def main() -> int:
             c = c + p[:, j]
             chain[:, j] = c
         one = p @ upper_tri_ones(t, dev)
+        out_of_order = int((ref.prefix_sum(p) != chain).any(-1).sum())
         emit({"phase": "prefix_order", "rows": r_rows, "T": t,
               "one_gemm_rows_out_of_order":
                   int((one != chain).any(-1).sum()),
-              "prefix_sum_rows_out_of_order":
-                  int((ref.prefix_sum(p) != chain).any(-1).sum())})
+              "prefix_sum_rows_out_of_order": out_of_order})
+        check(out_of_order == 0, f"prefix_order [{r_rows}, {t}]: "
+              f"{out_of_order} rows out of left-to-right order")
 
     # ---- end to end: the four algorithms through their entry points, at
     # one sweep per launch (B2) and at eight (B3), dense and sparse; each
@@ -1881,6 +1915,256 @@ def main() -> int:
               and variants["B3"]["cluster"] == want["B3"],
               f"sparse_T512 {mode}: launches by variant {variants}")
 
+    # ---- end_to_end_binary: Figure 7 (binary labels) at the reference
+    # harness's scale 1.0 (`repro_torch.fig7_imdb`), the four algorithms
+    # through their entry points at spl 1 (B2) and 8 (B3), dense, and
+    # sparse at 8; each run's launch counts zeroed just before it and read
+    # just after
+    from repro_torch import fig7_imdb
+    f7_data = fig7_imdb.make_data(args.seed, dev)
+    f7_cfg = fig7_imdb.CFG
+    f7_fused = dataclasses.replace(f7_cfg, sweeps_per_launch=8)
+    for run_cfg in (f7_cfg, f7_fused,
+                    dataclasses.replace(f7_fused, sampler_mode="sparse")):
+        fig7_imdb.run(args.seed, dev, data=f7_data, cfg=run_cfg)  # warm-up
+        zero_counts()
+        res = fig7_imdb.run(args.seed, dev, data=f7_data, cfg=run_cfg)
+        torch.cuda.synchronize()
+        launches, sparse_launches, variants = read_counts()
+        spl = run_cfg.sweeps_per_launch
+        is_sparse = run_cfg.sampler_mode == "sparse"
+        n_b = -(-run_cfg.n_iters // spl)
+        want = {"B1": 4, "B2": 4 * n_b if spl == 1 else 0,
+                "B3": 0 if spl == 1 else 4 * n_b}
+        emit({"phase": "end_to_end_binary", "card": smi,
+              "sweeps_per_launch": spl, "sampler_mode": run_cfg.sampler_mode,
+              "docs": fig7_imdb.N_DOCS, "train_docs": fig7_imdb.N_TRAIN,
+              "W": fig7_imdb.VOCAB, "T": fig7_imdb.N_TOPICS,
+              "launches": launches, "sparse_launches": sparse_launches,
+              "variant_launches": variants, **res})
+        acc = {k: v["test_acc"] for k, v in res["algorithms"].items()}
+        check(launches == want, f"end_to_end_binary: launches {launches}")
+        main_variant = {
+            "B1": slda_predict.variant(fig7_imdb.N_TOPICS, is_sparse,
+                                       fig7_imdb.DOC_LEN),
+            "B2": slda_gibbs.variant(fig7_imdb.N_TOPICS), "B3": "cluster"}
+        check(all(variants[k][v] == launches[k]
+                  for k, v in main_variant.items()),
+              f"end_to_end_binary: launches by variant {variants}")
+        check(sparse_launches == (launches if is_sparse else
+                                  {k: 0 for k in launches}),
+              f"end_to_end_binary: sparse launches {sparse_launches}")
+        for name in ("nonparallel", "simple", "weighted"):
+            check(acc[name] >= BINARY_ACC_MIN,
+                  f"end_to_end_binary: {name} accuracy {acc[name]}")
+        check(acc["naive"] < acc["simple"],
+              f"end_to_end_binary: naive not below simple {acc}")
+
+    # ---- end_to_end_ragged: the four algorithms over the padded corpus
+    # against length buckets (`length_buckets` 8, the config's token block
+    # and overhead), at the MD&A slice at spl 1 (dense and sparse) and 8,
+    # and at Figure 7 at spl 8.  The bucketed run goes twice: with the
+    # plan's own choice of streams (`plan._streams_for`: multi-sweep
+    # launches on streams of their own, single sweeps in turn) and with
+    # the other choice for every launch, so that both forms are timed on
+    # the same inputs.  Every form's launch counts are zeroed just before
+    # its run and read just after
+    from repro_torch.core import build_schedule
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.types import _concat_corpora
+    streams_for = plan_mod._streams_for
+
+    def swapped_streams(n_sweeps, n_calls, dev_):
+        return (dev_.type == "cuda" and n_calls > 1
+                and not streams_for(n_sweeps, n_calls, dev_))
+
+    def algorithms(run_cfg, data):
+        """Every algorithm's ŷ, phase ms and metric over `data`."""
+        tr, te = data
+        out = {}
+        for name, fn in ALGORITHMS.items():
+            timer = PhaseTimer(dev)
+            extra = () if name == "nonparallel" else (M,)
+            yhat = fn(args.seed + 1, tr, te, run_cfg, *extra, device=dev,
+                      timer=timer)
+            out[name] = {"yhat": yhat, "phase_ms": timer.ms()}
+        return out
+
+    def schedule(corpus, run_cfg):
+        d = build_plan(build_schedule(corpus, run_cfg), run_cfg).describe()
+        return {k: d[k] for k in ("bucket_widths", "bucket_counts",
+                                  "padded_slot_frac",
+                                  "slot_vs_effective_tok_ratio")}
+
+    for label, base, data, binary in (
+            ("mdna", cfg, (train, test), False),
+            ("mdna", sparse_one, (train, test), False),
+            ("mdna", fused, (train, test), False),
+            ("fig7", f7_fused, f7_data, True)):
+        tr, te = data
+        bcfg = dataclasses.replace(base, length_buckets=8)
+        spl = base.sweeps_per_launch
+        n_b = -(-base.n_iters // spl)
+        k = {"train_1": partition(tr, 1), "train_M": partition(tr, M),
+             "test": te, "weighted": _concat_corpora(te, tr)}
+        scheds = {key: schedule(c, bcfg) for key, c in k.items()}
+        kb = {key: len(v["bucket_widths"]) for key, v in scheds.items()}
+        trained = n_b * (kb["train_1"] + 3 * kb["train_M"])
+        want = {"B1": 3 * kb["test"] + kb["weighted"],
+                "B2": trained if spl == 1 else 0,
+                "B3": 0 if spl == 1 else trained}
+        forms, on_streams = {}, {}
+        for form, run_cfg, choice in (("padded", base, streams_for),
+                                      ("buckets", bcfg, streams_for),
+                                      ("buckets_swapped", bcfg,
+                                       swapped_streams)):
+            plan_mod._streams_for = choice
+            try:
+                algorithms(run_cfg, data)                      # warm-up
+                zero_counts()
+                out = algorithms(run_cfg, data)
+                torch.cuda.synchronize()
+                on_streams[form] = build_plan(
+                    build_schedule(k["test"], run_cfg),
+                    run_cfg).describe()["bucket_streams"]
+            finally:
+                plan_mod._streams_for = streams_for
+            forms[form] = (out, read_counts())
+        is_sparse = base.sampler_mode == "sparse"
+        row = {"phase": "end_to_end_ragged", "card": smi, "corpus": label,
+               "sweeps_per_launch": spl, "sampler_mode": base.sampler_mode,
+               "length_buckets": bcfg.length_buckets,
+               "bucket_token_block": bcfg.bucket_token_block,
+               "bucket_overhead_docs": bcfg.bucket_overhead_docs,
+               "schedules": scheds, "want_bucketed_launches": want,
+               "on_streams": on_streams}
+        for form, (out, (launches, sparse_launches, variants)) in \
+                forms.items():
+            metric = {}
+            for name, r in out.items():
+                yh = r["yhat"]
+                metric[name] = (fig7_imdb.accuracy(yh, te.y) if binary
+                                else float(((yh - te.y) ** 2).mean()))
+            row[form] = {
+                "phase_ms": {n: r["phase_ms"] for n, r in out.items()},
+                "train_ms": sum(r["phase_ms"].get("train", 0.0)
+                                for r in out.values()),
+                "predict_ms": sum(r["phase_ms"].get("predict", 0.0)
+                                  for r in out.values()),
+                "test_acc" if binary else "test_mse": metric,
+                "launches": launches, "sparse_launches": sparse_launches,
+                "variant_launches": variants}
+        pad_out, bkt_out = forms["padded"][0], forms["buckets"][0]
+        swp_out = forms["buckets_swapped"][0]
+        row["bitwise_equal_to_padded"] = {
+            n: bool(torch.equal(bkt_out[n]["yhat"], pad_out[n]["yhat"]))
+            for n in pad_out}
+        row["swapped_streams_equal"] = {
+            n: bool(torch.equal(swp_out[n]["yhat"], bkt_out[n]["yhat"]))
+            for n in bkt_out}
+        emit(row)
+        main_variant = {
+            "B1": slda_predict.variant(base.n_topics, is_sparse,
+                                       te.max_len),
+            "B2": slda_gibbs.variant(base.n_topics), "B3": "cluster"}
+        for form in ("buckets", "buckets_swapped"):
+            launches, sparse_launches, variants = forms[form][1]
+            check(launches == want, f"end_to_end_ragged {label} spl {spl} "
+                  f"{form}: launches {launches}, want {want}")
+            check(all(variants[kk][v] == launches[kk]
+                      for kk, v in main_variant.items()),
+                  f"end_to_end_ragged {label} {form}: launches by variant "
+                  f"{variants}")
+            check(sparse_launches == (launches if is_sparse else
+                                      {kk: 0 for kk in launches}),
+                  f"end_to_end_ragged {label} {form}: sparse launches "
+                  f"{sparse_launches}")
+        check(all(row["swapped_streams_equal"].values()),
+              f"end_to_end_ragged {label} spl {spl}: streams changed ŷ")
+        if spl == 1:
+            check(all(row["bitwise_equal_to_padded"].values()),
+                  f"end_to_end_ragged {label} {base.sampler_mode}: "
+                  f"bucketed ŷ differs from padded "
+                  f"{row['bitwise_equal_to_padded']}")
+            continue
+        for form in ("padded", "buckets"):
+            if binary:
+                acc = row[form]["test_acc"]
+                check(all(acc[n] >= BINARY_ACC_MIN for n in
+                          ("nonparallel", "simple", "weighted"))
+                      and acc["naive"] < acc["simple"],
+                      f"end_to_end_ragged {label} {form}: accuracy {acc}")
+            else:
+                mse, var_y = row[form]["test_mse"], float(
+                    te.y.var(unbiased=False))
+                check(all(mse[n] < 0.6 * var_y for n in
+                          ("nonparallel", "simple", "weighted"))
+                      and mse["naive"] > mse["simple"],
+                      f"end_to_end_ragged {label} {form}: MSE {mse}")
+
+    # ---- ragged_small_buckets: B1, B2 and B3 against their plain versions
+    # over the few long documents a tail bucket holds (D = 1 to 8 a chain,
+    # T = 16, N = 120, B3 at the plan's doc block), dense and sparse
+    g = torch.Generator(device=dev).manual_seed(args.seed + 2)
+    for d in range(1, 9):
+        n, t = 120, T0
+        tok = torch.randint(0, W, (M, d, n), device=dev, generator=g,
+                            dtype=torch.int32)
+        lens = torch.randint(n // 2, n + 1, (M, d), device=dev, generator=g)
+        msk = (torch.arange(n, device=dev) < lens[..., None]).float()
+        z = torch.randint(0, t, (M, d, n), device=dev, generator=g,
+                          dtype=torch.int32)
+        ndt, ntw, nt = counts_from_assignments(tok, msk, z, t, W)
+        ntw_t = ntw.transpose(1, 2).contiguous()
+        eta = torch.randn((M, t), device=dev, generator=g)
+        y = torch.randn((M, d), device=dev, generator=g)
+        il = 1.0 / msk.sum(-1).clamp(min=1.0)
+        u = torch.rand((M, d, n), device=dev, generator=g)
+        sd = torch.randint(0, 2 ** 31 - 1, (M, d), device=dev, generator=g,
+                           dtype=torch.int32)
+        phi_t = rand_table(M, t, g).transpose(1, 2).contiguous()
+        real = float(msk.sum())
+        doc_block = build_plan(partition(train, M), cfg).train_doc_block(d)
+        for mode in ("dense", "sparse"):
+            ti = index_of(ntw_t, cfg.sparse_topic_cap) \
+                if mode == "sparse" else None
+            a2 = (tok, msk, u, z, ndt, y, il, ntw_t, nt, eta)
+            kw2 = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho,
+                       supervised=True, topic_index=ti)
+            z_k, ndt_k = slda_gibbs.slda_gibbs_sweep_cuda(*a2, **kw2)
+            z_p, _ = ref.ref_slda_gibbs_sweep_chains(*a2, **kw2)
+            mis2 = float(((z_k != z_p) & (msk > 0)).sum()) / real
+            ex2 = bool(torch.equal(counts_from_assignments(
+                tok, msk, z_k, t, W)[0], ndt_k))
+            a3 = (tok, msk, sd, z, ndt, y, il, ntw_t, nt, eta)
+            kw3 = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho,
+                       n_sweeps=8, doc_block=doc_block, supervised=True,
+                       product_form=True, ctr_stride=2 * n)
+            z_k, ndt_k = slda_train.slda_train_sweeps_cuda(
+                *a3, topic_index=ti, **kw3)
+            ex3 = bool(torch.equal(counts_from_assignments(
+                tok, msk, z_k, t, W)[0], ndt_k))
+            mis3 = sweep_by_sweep(a3, kw3, real, ti)
+            tp = index_of(phi_t, cfg.sparse_topic_cap) \
+                if mode == "sparse" else None
+            m0 = msk[0][None].expand(M, -1, -1)
+            n0 = counts_from_assignments(tok[0][None].expand(M, -1, -1), m0,
+                                         z, t, W)[0]
+            a1 = (tok[0].contiguous(), msk[0].contiguous(), sd, z, n0, phi_t)
+            kw1 = dict(alpha=cfg.alpha, n_burnin=2, n_samples=2,
+                       ctr_stride=2 * n, topic_index=tp)
+            _, z_k = slda_predict.slda_predict_sweeps_cuda(*a1, **kw1)
+            _, z_p = ref.slda_predict_sweeps_chains(*a1, **kw1)
+            mis1 = float(((z_k != z_p) & (m0 > 0)).sum()) / float(m0.sum())
+            emit({"phase": "ragged_small_buckets", "D": d, "M": M, "N": n,
+                  "T": t, "mode": mode, "doc_block": doc_block,
+                  "B1_mismatch": mis1, "B2_mismatch": mis2,
+                  "B2_counts_exact": ex2, "B3_sweep_mismatch": mis3,
+                  "B3_counts_exact": ex3})
+            check(max(mis1, mis2, *mis3) <= MISMATCH_MAX and ex2 and ex3,
+                  f"ragged_small_buckets D={d} {mode}: draws or counts "
+                  f"differ")
+
     # ---- where the time goes: one simple-average run under the profiler
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1899,11 +2183,20 @@ def main() -> int:
                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0}
     index_ms = event_ms(lambda: sparse.build_topic_index(
         ntw_view, cfg.sparse_topic_cap), 20)
-    for run_cfg in (cfg, fused, sparse_fused):
+    # the slice at each setting and sparse at 8, then padded against 8
+    # length buckets (the plan's choice of streams) at the slice at spl 1
+    # and 8 and at Figure 7 at 8
+    bucketed = lambda c: dataclasses.replace(c, length_buckets=8)
+    mdna = (train, test)
+    for label, data, run_cfg in (
+            ("mdna", mdna, cfg), ("mdna", mdna, fused),
+            ("mdna", mdna, sparse_fused), ("mdna", mdna, bucketed(cfg)),
+            ("mdna", mdna, bucketed(fused)), ("fig7", f7_data, f7_fused),
+            ("fig7", f7_data, bucketed(f7_fused))):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            ALGORITHMS["simple"](args.seed + 1, train, test, run_cfg, M,
+            ALGORITHMS["simple"](args.seed + 1, *data, run_cfg, M,
                                  device=dev)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
@@ -1911,16 +2204,21 @@ def main() -> int:
                       if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                      key=dev_us, reverse=True)
         busy_ms = sum(dev_us(e) for e in ops) / 1e3
-        # B3's kernels (either variant) as a share of the busy time
+        # B3's kernels (either variant) as a share of the busy time, and
+        # the B1–B3 kernels' time together
         b3_ms = sum(dev_us(e) for e in ops if "train_cluster_kernel" in e.key
                     or "train_sweeps_kernel" in e.key) / 1e3
-        line = {"phase": "profile", "algorithm": "simple",
+        sampler_ms = sum(dev_us(e) for e in ops if any(
+            k in e.key for k in ("predict_", "gibbs_", "train_"))) / 1e3
+        line = {"phase": "profile", "algorithm": "simple", "corpus": label,
                 "sweeps_per_launch": run_cfg.sweeps_per_launch,
                 "sampler_mode": run_cfg.sampler_mode,
+                "length_buckets": run_cfg.length_buckets,
                 "wall_ms": wall_ms, "device_busy_ms": busy_ms,
                 "device_idle_share": 1.0 - busy_ms / wall_ms if ops else None,
                 "b3_ms": b3_ms,
                 "b3_share_of_busy": b3_ms / busy_ms if ops else None,
+                "sampler_kernels_ms": sampler_ms,
                 "top_kernels": [{"name": e.key[:70], "calls": e.count,
                                  "ms": dev_us(e) / 1e3} for e in ops[:8]]}
         if run_cfg.sampler_mode == "sparse":

@@ -1,10 +1,13 @@
-"""Architecture registry of the port: shape tables only, no weights.
+"""Architecture registry of the port: shape tables only, no weights; and
+the paper's own sLDA experiment configs.
 
 The frontend-free, expert-free archs of the reference's registry are
 here: the dense ones, Mamba-2 and the hybrid.  The others raise
 `NotImplementedError` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
+
+from repro_torch.core.types import SLDAConfig
 
 from . import (codeqwen1_5_7b, internlm2_1_8b, mamba2_1_3b, qwen2_5_32b,
                qwen3_1_7b, zamba2_2_7b)
@@ -39,4 +42,11 @@ def get_arch(name: str, smoke: bool = False):
     return table[name]
 
 
-__all__ = ["ARCHS", "SMOKES", "NOT_PORTED", "get_arch"]
+# ---- the paper's own experiments (Section IV), the reference's values
+SLDA_MDNA = SLDAConfig(n_topics=32, vocab_size=4238, rho=0.5,
+                       label_type="continuous", n_iters=60)
+SLDA_IMDB = SLDAConfig(n_topics=32, vocab_size=8000, rho=0.25,
+                       label_type="binary", n_iters=60)
+
+__all__ = ["ARCHS", "SMOKES", "NOT_PORTED", "get_arch", "SLDA_MDNA",
+           "SLDA_IMDB"]

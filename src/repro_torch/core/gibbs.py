@@ -70,18 +70,21 @@ def phi_hat(state: GibbsState, cfg: SLDAConfig) -> torch.Tensor:
                                      + cfg.vocab_size * cfg.beta)
 
 
-def train_chain(seed: int, corpus: Corpus, cfg: SLDAConfig, *,
+def train_chain(seed: int, corpus, cfg: SLDAConfig, *,
                 device="cuda") -> tuple[GibbsState, SLDAModel]:
     """The full stochastic-EM loop for ONE chain on ONE (sub-)corpus:
     Gibbs sweeps (one per launch, or `cfg.sweeps_per_launch` fused)
     alternating with the η ridge solve (Eq. 2).  The draws come from the
-    chain's generator seeded from `seed`."""
+    chain's generator seeded from `seed`.  `corpus` is a `Corpus` or a
+    flat `BucketedCorpus` (`plan.build_schedule`), whose sweeps run a
+    launch a bucket; the returned z is in the padded layout, original
+    order."""
     from .plan import build_plan
     dev = resolve_device(device)
-    corpus = corpus.to(dev)
+    plan = build_plan(corpus.to(dev), cfg, chained=True)
     gens = rng.chain_generators(seed, 1, dev)
-    z_init, draws = rng.train_draws(gens, corpus.n_docs, corpus.max_len,
-                                    cfg.n_topics, cfg.n_iters,
-                                    cfg.sweeps_per_launch)
-    state, model = build_plan(corpus, cfg, chained=True).train(z_init, draws)
+    z_init, draws = rng.train_draws(gens, plan.corpus.n_docs,
+                                    plan.corpus.max_len, cfg.n_topics,
+                                    cfg.n_iters, cfg.sweeps_per_launch)
+    state, model = plan.train(z_init, draws)
     return state.map(lambda a: a[0]), model.map(lambda a: a[0])

@@ -8,17 +8,18 @@ documents under
 (unsupervised — the label is what we predict), then report
 ŷ_d = η̂ᵀ z̄_d with z̄ averaged over the last `n_pred_samples` sweeps after
 `n_pred_burnin` burn-in sweeps.  One model is M = 1 of the chain-batched
-prediction pass: one launch of kernel B1 on the card.
+prediction pass: one launch of kernel B1 on the card, one a length
+bucket where `cfg.length_buckets > 0` or `corpus` is a `BucketedCorpus`.
 """
 from __future__ import annotations
 
 import torch
 
-from .types import Corpus, SLDAConfig, SLDAModel
+from .types import SLDAConfig, SLDAModel
 
 
-def predict(seed: int, model: SLDAModel, corpus: Corpus, cfg: SLDAConfig,
-            *, device="cuda") -> torch.Tensor:
+def predict(seed: int, model: SLDAModel, corpus, cfg: SLDAConfig, *,
+            device="cuda") -> torch.Tensor:
     """ŷ [D] for every document in `corpus` under `model`."""
     from .parallel import predict_chains
     return predict_chains(seed, model.map(lambda a: a[None]), corpus, cfg,

@@ -6,7 +6,10 @@ the initial topics and per-document seeds of prediction — so that tests
 can hand in the reference's own draws.  For a standalone run every chain
 gets its own `torch.Generator` on the run's device (Philox on a CUDA
 device), seeded from (seed, stream, chain): a chain's draws do not
-depend on how many chains run beside it.
+depend on how many chains run beside it.  A length-bucketed run takes
+the padded run's draws, at the source corpus's max_len (`ctr_stride`),
+and its plan carves them along the schedule: nothing draws at a bucket's
+width, so bucketed and padded runs draw the same numbers per document.
 """
 from __future__ import annotations
 

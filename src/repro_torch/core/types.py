@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -18,13 +19,14 @@ Tensor = torch.Tensor
 class SLDAConfig:
     """Hyperparameters of supervised LDA (McAuliffe & Blei 2008 notation).
 
-    Same fields and defaults as the reference's `SLDAConfig`.  This port
-    runs the padded path, one sweep per launch (`sweeps_per_launch=1`,
-    kernel B2) or several (kernel B3), with the dense draw or the sparse
-    two-stage draw (`sampler_mode="sparse"`, over each word's top
-    `sparse_topic_cap` topics, clamped to T); ragged buckets raise until
-    the ROADMAP item that brings them lands.  `use_pallas` is accepted
-    and ignored: the tensors' device decides between the CUDA kernels and
+    Same fields and defaults as the reference's `SLDAConfig`.  A run
+    takes one sweep per launch (`sweeps_per_launch=1`, kernel B2) or
+    several (kernel B3), with the dense draw or the sparse two-stage draw
+    (`sampler_mode="sparse"`, over each word's top `sparse_topic_cap`
+    topics, clamped to T), over the padded corpus (`length_buckets=0`)
+    or over at most `length_buckets` length buckets (`bucket_corpus`,
+    each bucket one launch of the kernel).  `use_pallas` is accepted and
+    ignored: the tensors' device decides between the CUDA kernels and
     their plain versions.
     """
 
@@ -56,10 +58,6 @@ class SLDAConfig:
     sparse_topic_cap: int = 32
 
     def __post_init__(self):
-        if self.length_buckets > 0:
-            raise NotImplementedError(
-                "length_buckets > 0 (ragged execution) comes with ROADMAP "
-                "queue A item 8")
         if self.sampler_mode not in ("dense", "sparse"):
             raise ValueError(f"sampler_mode={self.sampler_mode!r}: expected "
                              "'dense' or 'sparse'")
@@ -122,6 +120,264 @@ class SLDAModel(_Tensors):
     eta: Tensor        # float32[T]    regression weights        η̂
     train_mse: Tensor  # float32[] training-set MSE (Weighted Average weight)
     train_acc: Tensor  # float32[] training-set accuracy (binary labels)
+
+
+# ------------------------------------------------- ragged execution layer
+
+def _take_docs(arr: Tensor, idx: Tensor, d_axis: int) -> Tensor:
+    """Gather document rows: idx [D'] (any d_axis) or [M, D'] (then the
+    doc axis is 1 and arr carries the matching leading chain dim)."""
+    if idx.dim() == 1:
+        return arr.index_select(d_axis, idx)
+    if d_axis != 1:
+        raise ValueError(f"per-chain rows want d_axis 1, got {d_axis}")
+    return arr[torch.arange(idx.shape[0], device=idx.device)[:, None], idx]
+
+
+@dataclasses.dataclass
+class BucketedCorpus:
+    """A corpus reorganized for length-bucketed (ragged) execution.
+
+    Documents are sorted by true length and grouped into buckets; bucket
+    b holds a contiguous run of the sorted order, padded to its own token
+    width `widths[b]` (a token_block multiple of its longest document)
+    instead of the source's max_len.  Each sweep runs one kernel launch a
+    bucket, so the token slots it walks scale with Σ_b D_b·N_b rather
+    than D·N_max.
+
+    buckets   : per-bucket `Corpus` (tokens [.., D_b, N_b]), rows in
+                sorted order; a leading chain dim M rides along when the
+                source was a chain-sharded corpus [M, D, N].
+    perm      : int64 [D] (or [M, D]): sorted position i holds original
+                document perm[i].
+    inv_perm  : int64 [D] (or [M, D]): original document d sits at sorted
+                position inv_perm[d].
+    ctr_stride: the source corpus's max_len, pinned as every bucketed
+                launch's PRNG counter stride, so that each (document,
+                sweep, token) draws the uniform it draws in the padded
+                launch: a bucketed run is bit for bit the padded one per
+                document at sweeps_per_launch=1 (`merge_docs` restores
+                original order).
+    identity  : the degenerate one-bucket schedule with the identity
+                permutation (`core.plan.as_bucketed`, the padded path):
+                its row plumbing gathers nothing.
+    """
+
+    buckets: tuple
+    perm: Tensor
+    inv_perm: Tensor
+    ctr_stride: int
+    identity: bool = False
+
+    @property
+    def _trivial(self) -> bool:
+        return self.identity and len(self.buckets) == 1
+
+    # ---- the schedule's shapes
+
+    @property
+    def widths(self) -> tuple:
+        return tuple(b.tokens.shape[-1] for b in self.buckets)
+
+    @property
+    def counts(self) -> tuple:
+        return tuple(b.tokens.shape[-2] for b in self.buckets)
+
+    @property
+    def n_docs(self) -> int:
+        return sum(self.counts)
+
+    @property
+    def n_chains(self):
+        """Leading chain dim of a chain-sharded schedule (None if flat)."""
+        t = self.buckets[0].tokens
+        return t.shape[0] if t.dim() == 3 else None
+
+    @property
+    def max_len(self) -> int:
+        return self.ctr_stride
+
+    def padded_tokens(self) -> int:
+        """Token slots the bucketed schedule walks a sweep (per chain)."""
+        return sum(d * w for d, w in zip(self.counts, self.widths))
+
+    def real_tokens(self) -> Tensor:
+        return sum(b.mask.sum() for b in self.buckets)
+
+    def lengths(self) -> Tensor:
+        """True document lengths in original order, [D] (or [M, D])."""
+        return self.merge_docs([b.mask.sum(-1) for b in self.buckets])
+
+    @property
+    def y(self) -> Tensor:
+        """Labels in original order (the buckets hold them sorted)."""
+        return self.merge_docs([b.y for b in self.buckets])
+
+    def to(self, device):
+        return BucketedCorpus(
+            buckets=tuple(b.to(device) for b in self.buckets),
+            perm=self.perm.to(device), inv_perm=self.inv_perm.to(device),
+            ctr_stride=self.ctr_stride, identity=self.identity)
+
+    # ---- row plumbing between original order and the bucketed layout
+
+    def _bucket_perms(self) -> list:
+        """Each bucket's slice of `perm`: its documents, original ids."""
+        out, o = [], 0
+        for c in self.counts:
+            out.append(self.perm[..., o:o + c])
+            o += c
+        return out
+
+    def split_docs(self, arr: Tensor, d_axis=None) -> list:
+        """Original-order document rows [.., D, ...] → per-bucket pieces
+        (one gather a bucket, each piece contiguous)."""
+        if self._trivial:
+            return [arr]
+        if d_axis is None:
+            d_axis = self.perm.dim() - 1
+        return [_take_docs(arr, p, d_axis) for p in self._bucket_perms()]
+
+    def merge_docs(self, pieces, d_axis=None) -> Tensor:
+        """Per-bucket document rows → one tensor in original order."""
+        pieces = list(pieces)
+        if self._trivial:
+            return pieces[0]
+        if d_axis is None:
+            d_axis = self.perm.dim() - 1
+        return _take_docs(torch.cat(pieces, d_axis), self.inv_perm, d_axis)
+
+    def split_padded(self, arr: Tensor, d_axis=None) -> list:
+        """[.., D, ctr_stride] in original order → per-bucket
+        [.., D_b, N_b]: rows gathered, the token tail cut to the bucket's
+        width (one gather a bucket, each piece contiguous)."""
+        if self._trivial and self.widths[0] == self.ctr_stride:
+            return [arr]
+        if d_axis is None:
+            d_axis = self.perm.dim() - 1
+        return [_take_docs(arr[..., :w], p, d_axis)
+                for p, w in zip(self._bucket_perms(), self.widths)]
+
+    def merge_padded(self, pieces, fill: Tensor, d_axis=None) -> Tensor:
+        """Per-bucket [.., D_b, N_b] → [.., D, ctr_stride] in original
+        order; the token columns past each bucket's width come from `fill`
+        (original order): they are all padding, which the padded launch
+        leaves at their input values."""
+        pieces = list(pieces)
+        if self._trivial and pieces[0].shape[-1] == self.ctr_stride:
+            return pieces[0]
+        fills = self.split_docs(fill, d_axis)
+        return self.merge_docs(
+            [torch.cat([p, f[..., p.shape[-1]:]], -1)
+             for p, f in zip(pieces, fills)], d_axis)
+
+
+def bucket_signature(bc: BucketedCorpus) -> tuple:
+    """The static shape signature of a bucketed schedule: one (width,
+    count) pair a bucket, the PRNG counter stride, the chain layout and
+    the identity flag.  Two schedules with equal signatures launch the
+    same kernels at the same shapes."""
+    return (tuple(zip(bc.widths, bc.counts)), bc.ctr_stride,
+            bc.n_chains, bc.identity)
+
+
+def _dp_bucket_cuts(segs, max_buckets: int, overhead: float):
+    """Optimal contiguous grouping of width segments into at most
+    max_buckets buckets, minimizing the modeled sweep cost
+    Σ_b (D_b + overhead)·N_b.
+
+    segs: [(count, width), ...] with strictly increasing widths (documents
+    sorted by length, compressed to runs of equal rounded width: a cut
+    inside a run never pays, so these are the only candidate cuts).
+    `overhead` is the fixed cost of a bucket in document rows (each extra
+    bucket is one more launch); 0 minimizes padded slots alone.  Returns
+    the segment end index of each bucket."""
+    S = len(segs)
+    max_b = max(1, min(max_buckets, S))
+    pref = [0]
+    for c, _ in segs:
+        pref.append(pref[-1] + c)
+    INF = float("inf")
+    # dp[b][j]: the least cost of covering the first j segments by b buckets
+    dp = [[INF] * (S + 1) for _ in range(max_b + 1)]
+    cut = [[0] * (S + 1) for _ in range(max_b + 1)]
+    dp[0][0] = 0.0
+    for b in range(1, max_b + 1):
+        for j in range(1, S + 1):
+            w = segs[j - 1][1]
+            for i in range(j):
+                if dp[b - 1][i] == INF:
+                    continue
+                c = dp[b - 1][i] + (pref[j] - pref[i] + overhead) * w
+                if c < dp[b][j]:
+                    dp[b][j] = c
+                    cut[b][j] = i
+    b_best = min(range(1, max_b + 1), key=lambda b: dp[b][S])
+    bounds, j = [], S
+    for b in range(b_best, 0, -1):
+        bounds.append(j)
+        j = cut[b][j]
+    return list(reversed(bounds))
+
+
+def bucket_corpus(corpus: Corpus, n_buckets: int = 8, *,
+                  token_block: int = 8,
+                  overhead_docs: float = 96.0) -> BucketedCorpus:
+    """The length-bucketed schedule of `corpus`, the reference's.
+
+    Documents are stably sorted by true length (per chain for a
+    chain-sharded [M, D, N] corpus: every chain shares the bucket sizes,
+    so that each launch stays rectangular, and has its own permutation)
+    and cut into at most `n_buckets` contiguous groups by
+    `_dp_bucket_cuts`: each group is padded to its token_block-rounded
+    longest document (longest across chains), and the cuts minimize
+    Σ_b (D_b + overhead_docs)·N_b.  A corpus of documents of one length
+    collapses to one bucket.  The lengths are read to the host (the
+    schedule's shapes depend on them); the rows are gathered on the
+    corpus's device."""
+    lens = corpus.mask.sum(-1).to("cpu", torch.int64).numpy()  # [D]/[M, D]
+    chain = lens.ndim == 2
+    D = lens.shape[-1]
+    src_n = corpus.tokens.shape[-1]
+    nb = max(1, min(int(n_buckets), D))
+
+    perm = np.argsort(lens, axis=-1, kind="stable")
+    lens_sorted = np.take_along_axis(lens, perm, axis=-1)
+    # the rounded width each sorted position needs (max across chains:
+    # each chain's sorted lengths ascend, so the column max ascends)
+    colmax = lens_sorted.max(axis=0) if chain else lens_sorted
+    round_w = np.minimum(
+        src_n, np.maximum(token_block,
+                          -(-colmax // token_block) * token_block))
+    segs = []                                      # runs of equal width
+    for w in round_w.tolist():
+        if segs and segs[-1][1] == w:
+            segs[-1][0] += 1
+        else:
+            segs.append([1, w])
+    ends = _dp_bucket_cuts([tuple(sg) for sg in segs], nb,
+                           float(overhead_docs))
+    widths, counts, o = [], [], 0
+    for e in ends:
+        counts.append(sum(c for c, _ in segs[o:e]))
+        widths.append(segs[e - 1][1])
+        o = e
+
+    dev = corpus.tokens.device
+    perm_t = torch.from_numpy(perm).to(dev)
+    inv_perm = torch.from_numpy(
+        np.argsort(perm, axis=-1, kind="stable")).to(dev)
+    d_axis = 1 if chain else 0
+    buckets, o = [], 0
+    for c, w in zip(counts, widths):
+        rows = perm_t[..., o:o + c]
+        buckets.append(Corpus(
+            tokens=_take_docs(corpus.tokens[..., :w], rows, d_axis),
+            mask=_take_docs(corpus.mask[..., :w], rows, d_axis),
+            y=_take_docs(corpus.y, rows, d_axis)))
+        o += c
+    return BucketedCorpus(buckets=tuple(buckets), perm=perm_t,
+                          inv_perm=inv_perm, ctr_stride=src_n)
 
 
 def partition(corpus: Corpus, m: int) -> Corpus:

@@ -9,7 +9,7 @@ otherwise.  The corpus is drawn by the port's `make_slda_corpus` from
 
     PYTHONPATH=src python -m repro_torch.fig6_mdna --device cpu \
         [--sweeps-per-launch 8] [--sampler-mode sparse] \
-        [--sparse-topic-cap 32]
+        [--sparse-topic-cap 32] [--length-buckets 8]
 
 prints each algorithm's test MSE beside var(y_test) and the ratios the
 paper's claims rest on.  `--sweeps-per-launch 8` trains with fused
@@ -17,6 +17,9 @@ launches of 8 sweeps (kernel B3 on the card), as the reference's own
 training benchmarks do; the default 1 trains one sweep per launch.
 `--sampler-mode sparse` draws every topic through the sparse two-stage
 draw over each word's top `--sparse-topic-cap` topics (clamped to T).
+`--length-buckets K` runs every sweep over at most K length buckets, a
+launch each (`SLDAConfig.length_buckets`; 0, the default, is the padded
+corpus).
 """
 from __future__ import annotations
 
@@ -79,12 +82,16 @@ if __name__ == "__main__":
                     default="dense")
     ap.add_argument("--sparse-topic-cap", type=int,
                     default=CFG.sparse_topic_cap)
+    ap.add_argument("--length-buckets", type=int,
+                    default=CFG.length_buckets)
     a = ap.parse_args()
     cfg = dataclasses.replace(CFG, sweeps_per_launch=a.sweeps_per_launch,
                               sampler_mode=a.sampler_mode,
-                              sparse_topic_cap=a.sparse_topic_cap)
+                              sparse_topic_cap=a.sparse_topic_cap,
+                              length_buckets=a.length_buckets)
     print(json.dumps({"device": a.device, "seed": a.seed,
                       "sweeps_per_launch": a.sweeps_per_launch,
                       "sampler_mode": a.sampler_mode,
                       "sparse_topic_cap": a.sparse_topic_cap,
+                      "length_buckets": a.length_buckets,
                       **run(a.seed, a.device, cfg=cfg)}))

@@ -8,9 +8,10 @@ The ops are the reference's `chain_axis=True` forms and keep its
 layouts: tables come in as `[M, T, W]` and are transposed to the
 row-gather `[M, W, T]` layout here, inside the op.  With
 `sampler_mode="sparse"` the op also builds the sparse draw's per-word
-topic index from that transposed table (`sparse.build_topic_index`, top
+topic index from that transposed table (`topic_index`: top
 `sparse_topic_cap` topics) and hands it to the kernel or the plain
-version beside the table.
+version beside the table, unless the caller hands it in: the plan builds
+it once an EM boundary for all of its buckets' launches.
 """
 from __future__ import annotations
 
@@ -35,27 +36,33 @@ def _dense(*tensors):
     return [t.contiguous() for t in tensors]
 
 
-def _topic_index(table_t, sampler_mode, cap):
-    """The sparse draw's index of `table_t` [M, W, T], or None (dense)."""
+def topic_index(table, sampler_mode, cap):
+    """The sparse draw's index of a table `[M, T, W]` (of its row-gather
+    layout `[M, W, T]`), or None for the dense draw."""
     if sampler_mode == "dense":
         return None
     if sampler_mode != "sparse":
         raise ValueError(f"sampler_mode={sampler_mode!r}")
-    return tuple(_dense(*build_topic_index(table_t, cap)))
+    return tuple(_dense(*build_topic_index(table.transpose(-1, -2), cap)))
+
+
+def _index_of(table, sampler_mode, cap, given):
+    return topic_index(table, sampler_mode, cap) if given is None else given
 
 
 def slda_gibbs_sweep(tokens, mask, uniforms, z, ndt, y, inv_len, ntw, nt,
                      eta, *, alpha, beta, rho, supervised=True,
-                     sampler_mode="dense", sparse_topic_cap=32):
+                     sampler_mode="dense", sparse_topic_cap=32,
+                     topic_index=None):
     """One document-parallel Gibbs sweep for M chains at once.
 
     tokens/mask/uniforms/z [M, D, N]; ndt [M, D, T]; y/inv_len [M, D];
     ntw [M, T, W]; nt/eta [M, T].  The sparse draw's index is built from
-    the sweep-frozen ntw.  Returns (z_new, ndt_new)."""
+    the sweep-frozen ntw, or handed in.  Returns (z_new, ndt_new)."""
     ntw_t = ntw.transpose(-1, -2)
     kw = dict(alpha=alpha, beta=beta, rho=rho, supervised=supervised,
-              topic_index=_topic_index(ntw_t, sampler_mode,
-                                       sparse_topic_cap))
+              topic_index=_index_of(ntw, sampler_mode, sparse_topic_cap,
+                                    topic_index))
     if _route(tokens):
         return slda_gibbs.slda_gibbs_sweep_cuda(*_dense(
             tokens, mask, uniforms, z, ndt, y, inv_len, ntw_t, nt, eta), **kw)
@@ -66,21 +73,23 @@ def slda_gibbs_sweep(tokens, mask, uniforms, z, ndt, y, inv_len, ntw, nt,
 def slda_train_sweeps(tokens, mask, z0, ndt0, y, inv_len, ntw, nt, eta,
                       seeds, *, alpha, beta, rho, n_sweeps, doc_block,
                       supervised=True, product_form=False, ctr_stride=None,
-                      sampler_mode="dense", sparse_topic_cap=32):
+                      sampler_mode="dense", sparse_topic_cap=32,
+                      topic_index=None):
     """`n_sweeps` training sweeps for M chains in one fused launch, each
     doc block refreshing a private copy of its chain's table between
     sweeps (delayed counts across blocks).  tokens/mask/z0 [M, D, N];
     ndt0 [M, D, T]; y/inv_len [M, D]; ntw [M, T, W]; nt/eta [M, T];
     seeds int32 [M, D].  The sparse draw's index is launch-frozen: built
-    once from the entry ntw and shared by every doc block of a chain.
+    once from the entry ntw (or handed in) and shared by every doc block
+    of a chain.
     Returns (z_final, ndt_final); the caller refreshes the global tables
     from (z0, z_final)."""
     ntw_t = ntw.transpose(-1, -2)
     kw = dict(alpha=alpha, beta=beta, rho=rho, n_sweeps=n_sweeps,
               doc_block=doc_block, supervised=supervised,
               product_form=product_form, ctr_stride=ctr_stride,
-              topic_index=_topic_index(ntw_t, sampler_mode,
-                                       sparse_topic_cap))
+              topic_index=_index_of(ntw, sampler_mode, sparse_topic_cap,
+                                    topic_index))
     if _route(tokens):
         return slda_train.slda_train_sweeps_cuda(*_dense(
             tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t, nt, eta), **kw)
@@ -90,17 +99,18 @@ def slda_train_sweeps(tokens, mask, z0, ndt0, y, inv_len, ntw, nt, eta,
 
 def slda_predict_sweeps(tokens, mask, z0, ndt0, phi, seeds, *, alpha,
                         n_burnin, n_samples, ctr_stride=None,
-                        sampler_mode="dense", sparse_topic_cap=32):
+                        sampler_mode="dense", sparse_topic_cap=32,
+                        topic_index=None):
     """All `n_burnin + n_samples` test-time sweeps for M chains over one
     shared corpus.  tokens/mask [D, N]; z0 [M, D, N]; ndt0 [M, D, T];
     phi [M, T, W]; seeds int32 [M, D].  The sparse draw's index is built
-    from each chain's φ̂.
+    from each chain's φ̂, or handed in.
     Returns (ndt_avg [M, D, T], z_final [M, D, N])."""
     phi_t = phi.transpose(-1, -2)
     kw = dict(alpha=alpha, n_burnin=n_burnin, n_samples=n_samples,
               ctr_stride=ctr_stride,
-              topic_index=_topic_index(phi_t, sampler_mode,
-                                       sparse_topic_cap))
+              topic_index=_index_of(phi, sampler_mode, sparse_topic_cap,
+                                    topic_index))
     if _route(tokens):
         return slda_predict.slda_predict_sweeps_cuda(*_dense(
             tokens, mask, seeds, z0, ndt0, phi_t), **kw)

@@ -8,8 +8,9 @@ time (the dependence along a document is sequential); chains are folded
 into the document-row axis around one stacked `[M·W, T]` table with
 per-chain token-id offsets `w + c·W` (the fused training sweeps fold
 chain × doc block around `[M·B·W, T]`, one private table per block).
-The operation order is the reference's (`repro.kernels.ref`), and the
-prefix sum is `p @ triu(T)`.
+The operation order is the reference's (`repro.kernels.ref`), but for the
+draw's prefix sum: the reference's `p @ triu(T)` is taken here left to
+right (`mathutil.prefix_sum`), the order of the kernels.
 
 Each takes `topic_index=(idx, vmask, occm)` (`[M, W, cap]`, `[M, W, cap]`,
 `[M, W, T]`, `core.types.topic_occupancy_index` of the chain's table) to
@@ -24,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.mathutil import prefix_sum, upper_tri_ones
+from repro_torch.mathutil import prefix_sum
 from .prng import counter_uniform, predict_uniforms
 from .sparse import gather_index_rows, two_stage_draw
 
@@ -34,19 +35,19 @@ from .sparse import gather_index_rows, two_stage_draw
 sparse_tally = {"tokens": 0, "stage2": 0}
 
 
-def _draw(p, u, tri_u):
-    """Inverse-CDF categorical draw: z = #{t : (p @ triu)_t < u·Σp}, the
-    prefix summed left to right (`mathutil.prefix_sum`)."""
-    c = prefix_sum(p, tri_u)
+def _draw(p, u):
+    """Inverse-CDF categorical draw: z = #{t : c_t < u·c_{T-1}}, c the
+    prefix sum of p taken left to right (`mathutil.prefix_sum`)."""
+    c = prefix_sum(p)
     return (c < (u * c[:, -1])[:, None]).sum(-1).to(torch.int32)
 
 
-def _draw_rows(p, u, tri_u, w, m, index):
+def _draw_rows(p, u, w, m, index):
     """The dense draw, or with a folded index `(idx, vmask, occm)` rows
     the sparse two-stage draw against the rows of the words w (tallying
     the real tokens, mask m > 0, that took stage 2)."""
     if index is None:
-        return _draw(p, u, tri_u)
+        return _draw(p, u)
     z, stage2 = two_stage_draw(p, u, *gather_index_rows(w, *index))
     real = m > 0
     sparse_tally["tokens"] = sparse_tally["tokens"] + real.sum()
@@ -90,7 +91,6 @@ def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
     R, N = tok_f.shape
     T = ndt_f.shape[-1]
     iota = torch.arange(T, device=tok_f.device)[None, :]
-    tri_u = upper_tri_ones(T, tok_f.device)
     ndt = ndt_f
     s = (ndt * eta_rows).sum(-1)            # running Σ_t η_t N_dt
     z_out = torch.empty_like(z_f)
@@ -116,7 +116,7 @@ def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
                 mu_t = (s[:, None] + eta_rows) * il_f[:, None]
                 logp = logp - 0.5 * (y_f[:, None] - mu_t) ** 2 / rho
             p = torch.exp(logp - logp.max(-1, keepdim=True).values)
-        z_new = torch.where(m > 0, _draw_rows(p, u, tri_u, w, m, index),
+        z_new = torch.where(m > 0, _draw_rows(p, u, w, m, index),
                             z_old)
         zn = z_new.long()[:, None]
         ndt = ndt + (iota == zn).to(torch.float32) * m[:, None]
@@ -297,7 +297,6 @@ def _predict_rows(tok_f, mask_f, z0_f, ndt0_f, table_t, alpha, n_burnin,
     R, N = tok_f.shape
     T = ndt0_f.shape[-1]
     iota = torch.arange(T, device=tok_f.device)[None, :]
-    tri_u = upper_tri_ones(T, tok_f.device)
     z = z0_f.clone()
     ndt = ndt0_f
     acc = torch.zeros_like(ndt0_f)
@@ -309,7 +308,7 @@ def _predict_rows(tok_f, mask_f, z0_f, ndt0_f, table_t, alpha, n_burnin,
             ndt = ndt - old
             p = (ndt + alpha) * table_t[w]
             z_new = torch.where(
-                m > 0, _draw_rows(p, uniform(s, n), tri_u, w, m, index),
+                m > 0, _draw_rows(p, uniform(s, n), w, m, index),
                 z_old)
             ndt = ndt + (iota == z_new.long()[:, None]).to(torch.float32) \
                 * m[:, None]

@@ -5,7 +5,7 @@ exact dense weights p are formed as before, then split by the word's
 occupancy index into
 
   * a sparse bucket `sv = take_along(p, idx) · vmask` over the word's
-    top-`cap` topics, drawn through the prefix sum `sv @ triu(cap)`;
+    top-`cap` topics, drawn through its prefix sum;
   * a residual `rv = p · (1 − occm)` holding what the index missed,
     drawn hierarchically: `nb = ⌈T/blk⌉` blocks of `blk = min(16, T)`
     topics, the block by the prefix sum of the block totals, then the
@@ -16,11 +16,13 @@ so a stale index changes which bucket serves a topic, never the
 distribution.  With the identity index (`idx = arange(T)`, `cap = T`,
 `vmask = occm = 1`) the residual is exactly zero and the draw is bit for
 bit the dense draw.  The operation order is the reference's
-(`repro.kernels.sparse`); the CUDA kernels run the same three prefix
-sums left to right (`csrc/slda_common.cuh`: `draw_topic_sparse` in the
-warp layout, `draw_topic_sparse_lane` and `draw_topic_sparse_half` where
-a lane or a half-warp draws a document at T <= 16), reading the index as
-one packed record a word (`pack_topic_index`), and
+(`repro.kernels.sparse`), but for the three prefix sums, which the
+reference takes as GEMMs against `triu` and this version takes left to
+right (`mathutil.prefix_sum`), as the CUDA kernels do
+(`csrc/slda_common.cuh`: `draw_topic_sparse` in the warp layout,
+`draw_topic_sparse_lane` and `draw_topic_sparse_half` where a lane or a
+half-warp draws a document at T <= 16), reading the index as one packed
+record a word (`pack_topic_index`), and
 `sparse_two_stage_draw_cuda` runs each form alone on the card.
 """
 from __future__ import annotations
@@ -29,7 +31,7 @@ import ctypes
 
 import torch
 
-from repro_torch.mathutil import upper_tri_ones
+from repro_torch.mathutil import prefix_sum
 from . import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -140,23 +142,22 @@ def two_stage_draw(p, u, idx, vmask, occm):
     the reference's predicated form."""
     t_dim, cap = p.shape[-1], idx.shape[-1]
     blk, nb = residual_blocks(t_dim)
-    dev = p.device
     idx_l = idx.long()
 
     sv = p.gather(-1, idx_l) * vmask
     rv = p * (1.0 - occm)
-    cs = sv @ upper_tri_ones(cap, dev)
+    cs = prefix_sum(sv)
     q_s = cs[..., -1]
 
     pad = nb * blk - t_dim
     if pad:
         rv = torch.nn.functional.pad(rv, (0, pad))
     rblk = rv.reshape(rv.shape[:-1] + (nb, blk))
-    # block totals from the same contraction as the fine prefix, so the
-    # block pick never overshoots its fine prefix
-    cfine = rblk @ upper_tri_ones(blk, dev)             # [..., nb, blk]
+    # block totals from the same sums as the fine prefix, so the block
+    # pick never overshoots its fine prefix
+    cfine = prefix_sum(rblk)                            # [..., nb, blk]
     rsum = cfine[..., -1]
-    cr = rsum @ upper_tri_ones(nb, dev)                 # [..., nb]
+    cr = prefix_sum(rsum)                               # [..., nb]
     q_r = cr[..., -1]
 
     tgt = u * (q_s + q_r)

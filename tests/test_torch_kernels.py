@@ -303,22 +303,39 @@ def test_ops_refuse_other_devices():
         ops.slda_gibbs_sweep(*a, alpha=ALPHA, beta=BETA, rho=RHO)
 
 
-@pytest.mark.parametrize("T", [16, 256, 300, 512])
+def _chain(p):
+    """The kernels' prefix sum, written out: one float32 add a column."""
+    s, seq = torch.zeros(p.shape[:-1]), torch.empty_like(p)
+    for t in range(p.shape[-1]):
+        s = s + p[..., t]
+        seq[..., t] = s
+    return seq
+
+
+@pytest.mark.parametrize("T", [1, 2, 3, 16, 40, 128, 256, 257, 300, 512])
 def test_plain_prefix_sum_is_left_to_right(T):
     """The plain draw's prefix sum is the left-to-right float32 chain the
-    kernels compute, bit for bit, on the CPU, past 256 topics too (where
-    one GEMM p @ triu(T) on the card sums in another order), and is the
-    GEMM itself up to 256 topics."""
+    kernels compute, bit for bit, at every T (where one GEMM p @ triu(T)
+    on the card sums in another order), and on the CPU over 300 rows, as
+    the samplers' tests draw them, it is the reference's GEMM itself up to
+    256 topics (over one row the CPU's GEMM too adds out of order)."""
     from repro_torch.mathutil import prefix_sum, upper_tri_ones
     rng = np.random.default_rng(T)
-    p = torch.from_numpy(rng.random((300, T), dtype=np.float32) ** 8)
-    s, seq = torch.zeros(300), torch.empty_like(p)
-    for t in range(T):
-        s = s + p[:, t]
-        seq[:, t] = s
-    assert torch.equal(prefix_sum(p), seq)
+    for rows in (1, 7, 300):
+        p = torch.from_numpy(rng.random((rows, T), dtype=np.float32) ** 8)
+        assert torch.equal(prefix_sum(p), _chain(p))
     if T <= 256:
         assert torch.equal(prefix_sum(p), p @ upper_tri_ones(T))
+
+
+def test_plain_prefix_sum_is_the_chain_at_every_T():
+    """T = 1 to 512, several row counts and a leading batch dim."""
+    from repro_torch.mathutil import prefix_sum
+    rng = np.random.default_rng(0)
+    for T in range(1, 513):
+        for lead in ((1,), (5,), (3, 4)):
+            p = torch.from_numpy(rng.random(lead + (T,), dtype=np.float32))
+            assert torch.equal(prefix_sum(p), _chain(p)), (T, lead)
 
 
 def test_build_targets_hopper_without_fast_math():

@@ -37,7 +37,6 @@ from repro_torch.kernels import (build, ops, ref, slda_gibbs, slda_predict,
 from repro_torch.kernels.prng import predict_uniforms
 from repro_torch.kernels.sparse import (pack_topic_index, residual_blocks,
                                         sparse_two_stage_draw)
-from repro_torch.mathutil import upper_tri_ones
 # the EM-loop helpers and the corpus of the port's other tests
 from test_torch_parallel import _ref_predict_draws, _ref_train_draws
 from test_torch_train import (CFG, SEEDS, _em_against_reference,  # noqa: F401
@@ -207,6 +206,41 @@ def test_lane_and_half_warp_model_is_the_reference_draw(t, cap):
         assert stage2 > 0
 
 
+@pytest.mark.parametrize("t,cap", [(1, 1), (3, 2), (16, 4), (16, 16),
+                                   (17, 5), (40, 32), (128, 32), (300, 7),
+                                   (512, 32)])
+def test_sparse_draw_prefix_sums_are_left_to_right(monkeypatch, t, cap):
+    """The sparse plain draw's three prefix sums (the bucket's, each
+    residual block's, the block totals') are the left-to-right float32
+    chains of the kernels, bit for bit, T = 1 to 512."""
+    from repro_torch.kernels import sparse as psparse
+    from repro_torch.mathutil import prefix_sum
+    seen = []
+
+    def recorded(x):
+        out = prefix_sum(x)
+        seen.append((x, out))
+        return out
+    monkeypatch.setattr(psparse, "prefix_sum", recorded)
+    rng = np.random.default_rng(t + cap)
+    for r in (1, 50):
+        p = (rng.random((r, t), dtype=np.float32) ** 3).astype(np.float32)
+        u = rng.random(r, dtype=np.float32)
+        idx, vm, om = _model_index(rng, r, t, cap, fresh=True)
+        seen.clear()
+        sparse_two_stage_draw(torch.from_numpy(p), torch.from_numpy(u), idx,
+                              vm, om)
+        blk, nb = residual_blocks(t)
+        assert [tuple(x.shape) for x, _ in seen] == [(r, cap), (r, nb, blk),
+                                                      (r, nb)]
+        for x, out in seen:
+            s, want = torch.zeros(x.shape[:-1]), torch.empty_like(x)
+            for j in range(x.shape[-1]):
+                s = s + x[..., j]
+                want[..., j] = s
+            assert torch.equal(out, want)
+
+
 def test_residual_blocks_match_reference():
     from repro.kernels.sparse import residual_blocks as j_blocks
     for t in (1, 3, 15, 16, 17, 40, 128, 256, 512):
@@ -224,7 +258,7 @@ def test_collapse_identity_index_is_the_dense_draw(t):
     idx = torch.arange(t, dtype=torch.int32).expand(r, t)
     ones = torch.ones((r, t))
     z_sparse = sparse_two_stage_draw(p, u, idx, ones, ones)
-    z_dense = ref._draw(p, u, upper_tri_ones(t))
+    z_dense = ref._draw(p, u)
     assert torch.equal(z_sparse, z_dense)
 
 

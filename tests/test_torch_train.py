@@ -330,7 +330,8 @@ def test_counts_stay_exact_without_rebuilds_and_hook_sees_each_boundary(
     state, status = plan.train_em(plan.init_states(z), draws, em_hook=hook,
                                   status0=0)
     assert seen == list(range(plan.n_boundaries())) and status == len(seen)
-    counts = counts_from_assignments(shards.tokens, shards.mask, state.z, 8,
+    counts = counts_from_assignments(shards.tokens, shards.mask,
+                                     plan.corpus.merge_padded(state.z, z), 8,
                                      200)
     for f, c in zip(("ndt", "ntw", "nt"), counts):
         assert torch.equal(getattr(state, f), c)
