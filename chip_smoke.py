@@ -40,7 +40,10 @@ Phases, one JSON line each:
                  k's uniforms, k = 1..8, each within the bound
                  (`sweep_mismatch`; the 8-sweep comparison from the start,
                  where one draw at a rounding edge spreads through its doc
-                 block, is reported as `fused_mismatch`)
+                 block, is reported as `fused_mismatch`); the T = 512 rows
+                 in both forms, also against a plain version whose
+                 Σ_t η_t·N_dt is one torch reduction
+                 (`torch_sum_sweep_mismatch`, ROADMAP C5)
   B3_parting     B3 against its plain version after 1, 2, .. 8 sweeps at
                  T = 128 on four fresh inputs: mismatched tokens after
                  each (one draw at a rounding edge spreads through its doc
@@ -109,6 +112,18 @@ Phases, one JSON line each:
   ragged_small_buckets  B1, B2 and B3 (sweep by sweep, at the plan's doc
                  block) against their plain versions over 1 to 8 documents
                  a chain, the tail bucket's shape, dense and sparse
+  supervised     training under `core.supervisor` at the slice's full
+                 scale, spl 1 and 8 dense and 8 sparse, rounds of 5 EM
+                 iterations, a checkpoint at each round's start
+                 (`supervised_phase`): the health probe leaves z, ndt and
+                 η bit for bit and adds no host sync to a round; chain 1
+                 with NaN η is restarted twice, then quarantined, the
+                 survivors' ŷ bit-equal to a clean run's; chain 2 killed
+                 comes back from the round's checkpoint, every chain alive
+                 and the MSE gate met; corrupt counts flagged; every B1–B3
+                 launch on the main path's variant; train ms with the
+                 probe on and off, the store's save, async accept and
+                 restore ms reported
   profile        one Simple Average run under torch.profiler, at each of
                  the two settings and sparse at 8, then over 8 length
                  buckets at the slice at spl 1 and 8 and Figure 7 at 8
@@ -221,6 +236,8 @@ SPILL_FREE_KERNELS = (
     *(f"{k}ILi{K}E" for K in (12, 16)
       for k in ("train_sweeps_kernel", "train_cluster_kernel")))
 MISMATCH_MAX = 1e-3
+# EM iterations a supervised round (the `supervised` phase)
+SUPERVISED_ROUND = 5
 # Figure 7's accuracy gate for Nonparallel, Simple and Weighted Average:
 # the reference's own run at scale 0.04 on the CPU gave 0.78, 0.86, 0.86
 # (Naive 0.71), so a port that learns the labels stays above 0.70
@@ -1010,6 +1027,247 @@ def ssm_phases(seed, dev, smi, event_ms, bound_ms):
     return {"B6": row}, {"B6": launches["B6"]}
 
 
+def supervised_phase(seed, dev, smi, train, test, runs, zero_counts,
+                     read_counts, main_variant):
+    """The supervised, checkpointed training path (`core.supervisor`) at
+    the slice's full scale, for each (label, config) of `runs`, in rounds
+    of SUPERVISED_ROUND EM iterations with a checkpoint at each round's
+    start; every B1–B3 launch of a config's runs counted, and each on the
+    main path's variant.  Gates: the probe is transparent (the same z,
+    ndt and η as no hook, status 0); it adds no host synchronization to a
+    round; a clean run keeps every chain; chain 1 poisoned with NaN η at
+    EM iteration 7's boundary is flagged, restarted twice, then
+    quarantined, the survivors' ŷ bit-equal to the clean run's and the
+    combined ŷ the clean chains' under the faulty mask; chain 2 killed at
+    iteration 12's boundary restarts from the round's checkpoint and every
+    chain ends alive within the accuracy gate; corrupt counts raise
+    F_NDT_SUM and F_NTW_NEG.  Reported: train ms with the probe on and
+    off, and save / restore ms (sync and async).  Returns each config's
+    launches, {label: (launches, sparse_launches)}."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import (AsyncCheckpointManager,
+                                        restore_chain, save_checkpoint)
+    from repro_torch.core import rng, supervised_run_average
+    from repro_torch.core.parallel import _combine_weighted, _shards
+    from repro_torch.core.supervisor import (F_KILLED, F_NAN_ETA, F_NDT_SUM,
+                                             F_NTW_NEG, ChainSupervisor,
+                                             _chain_of, seeded_draws)
+    from repro_torch.testing import poison
+
+    M, R = 4, SUPERVISED_ROUND
+    var_y = float(test.y.var(unbiased=False))
+    out = {}
+
+    def wall_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, res
+
+    def syncs(fn):
+        """Host synchronizations in fn(), as the sync debug mode warns."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        return sum("synchroniz" in str(w.message).lower() for w in caught)
+
+    def actions(rep, c):
+        return [e["action"] for h in rep.history for e in h["events"]
+                if e["chain"] == c]
+
+    for n_run, (label, cfg) in enumerate(runs):
+        spl, T = cfg.sweeps_per_launch, cfg.n_topics
+        per_round = -(-R // spl)
+
+        def boundary(i):
+            """The EM boundary that follows EM iteration i."""
+            return (i // R) * per_round + (i % R) // spl
+
+        shards = _shards(train, M, cfg, dev)
+        sup = ChainSupervisor(shards, cfg)
+        plan = sup.plan
+        bc = plan.corpus
+        z0, draws = rng.train_draws(rng.chain_generators(seed, M, dev),
+                                    bc.n_docs, bc.max_len, T, cfg.n_iters,
+                                    spl)
+        draws = list(draws)
+        ones = torch.ones(M, device=dev)
+
+        def status0():
+            return torch.zeros(M, dtype=torch.int32, device=dev)
+
+        def plain():
+            return plan.train_em(plan.init_states(z0), draws)
+
+        def probed():
+            return plan.train_em(plan.init_states(z0), draws,
+                                 em_hook=sup.hook(plan, ones),
+                                 status0=status0())
+        plain(), probed()                                    # warm-up
+        off_ms, on_ms = [], []
+        for _ in range(3):
+            off_ms.append(wall_ms(plain)[0])
+            on_ms.append(wall_ms(probed)[0])
+        a, (b, st) = plain(), probed()
+        transparent = (all(torch.equal(x, y) for x, y in zip(a.z, b.z))
+                       and all(torch.equal(getattr(a, f), getattr(b, f))
+                               for f in ("ndt", "ntw", "nt", "eta"))
+                       and int((st != 0).sum()) == 0)
+
+        # host synchronizations in one round, the probe off and on, each
+        # counted twice in turn after a warm-up call (the first count of
+        # a setting has held one sync more than the others)
+        rp = sup.make_round_plan(R)
+        rd = list(seeded_draws(seed, plan).round(0, np.zeros(M, np.int32),
+                                                 R))
+        count = {
+            "off": lambda: rp.train_em(rp.init_states(z0), rd),
+            "on": lambda: rp.train_em(
+                rp.init_states(z0), rd, em_hook=sup.hook(rp, ones),
+                status0=status0()),
+            "supervised": lambda: sup.run_round(
+                rp, iter(rd), rp.init_states(z0), np.ones(M, bool), 0)}
+        for fn in count.values():
+            fn()
+        s_off, s_on, s_round = [], [], []
+        for _ in range(2):
+            for got, fn in zip((s_off, s_on, s_round), count.values()):
+                got.append(syncs(fn))
+
+        zero_counts()
+        with tempfile.TemporaryDirectory() as tmp:
+            def run(name, fault=None):
+                t0 = time.perf_counter()
+                y, rep = supervised_run_average(
+                    seed, train, test, cfg, M, rule="weighted",
+                    ckpt_dir=f"{tmp}/{name}", round_iters=R,
+                    fault_hook=None if fault is None else
+                    poison(M, *fault, device=dev).hook(), device=dev)
+                torch.cuda.synchronize()
+                return y, rep, (time.perf_counter() - t0) * 1e3
+            y_c, rep_c, clean_ms = run("clean")
+            y_n, rep_n, nan_ms = run("nan", (1, boundary(7), "nan"))
+            y_k, rep_k, kill_ms = run("kill", (2, boundary(12), "kill"))
+            y_x, rep_x, _ = run("corrupt", (3, boundary(3), "corrupt"))
+        launches, sparse_launches, variants = read_counts()
+        out[label] = (launches, sparse_launches)
+
+        alive_n = rep_n.alive_mask(dev)
+        want_n = _combine_weighted(
+            torch.from_numpy(rep_c.yhat_chains).to(dev),
+            torch.from_numpy(rep_c.yhat_train_chains).to(dev), train.y, cfg,
+            alive_n)
+        survivors_equal = all(np.array_equal(rep_n.yhat_chains[c],
+                                             rep_c.yhat_chains[c])
+                              for c in (0, 2, 3))
+        mse_k = float(((y_k - test.y) ** 2).mean())
+        kill_step = R * (12 // R)
+        row = {"phase": "supervised", "card": smi, "config": label,
+               "sweeps_per_launch": spl, "sampler_mode": cfg.sampler_mode,
+               "M": M, "n_iters": cfg.n_iters, "round_iters": R,
+               "boundaries_per_round": per_round,
+               "hook_transparent": transparent,
+               "train_ms_probe_off": off_ms, "train_ms_probe_on": on_ms,
+               "syncs_a_round_probe_off": s_off,
+               "syncs_a_round_probe_on": s_on,
+               "syncs_a_round_supervised": s_round,
+               "clean": {"alive": rep_c.alive.tolist(),
+                         "status": rep_c.status.tolist(),
+                         "test_mse": float(((y_c - test.y) ** 2).mean()),
+                         "run_ms": clean_ms},
+               "nan_eta": {"boundary": boundary(7),
+                           "alive": rep_n.alive.tolist(),
+                           "status": rep_n.status.tolist(),
+                           "restarts": rep_n.restarts.tolist(),
+                           "chain_1_actions": actions(rep_n, 1),
+                           "survivors_equal": survivors_equal,
+                           "combined_equal": bool(torch.equal(y_n,
+                                                              want_n)),
+                           "run_ms": nan_ms},
+               "kill": {"boundary": boundary(12),
+                        "alive": rep_k.alive.tolist(),
+                        "status": rep_k.status.tolist(),
+                        "restarts": rep_k.restarts.tolist(),
+                        "chain_2_actions": actions(rep_k, 2),
+                        "test_mse": mse_k, "var_y_test": var_y,
+                        "run_ms": kill_ms},
+               "corrupt": {"boundary": boundary(3),
+                           "status": rep_x.status.tolist(),
+                           "alive": rep_x.alive.tolist(),
+                           "finite": bool(torch.isfinite(y_x).all())},
+               "launches": launches, "sparse_launches": sparse_launches,
+               "variant_launches": variants}
+        if n_run == 0:
+            # the checkpoint store on the trained state (one save: every
+            # chain's file, the manifest, the fsyncs and the publish)
+            state = a
+            with tempfile.TemporaryDirectory() as tmp:
+                save_ms = [wall_ms(lambda i=i: save_checkpoint(
+                    f"{tmp}", i, state))[0] for i in range(5)]
+                tmpl = _chain_of(state, 0)
+                restore_ms = [wall_ms(lambda: restore_chain(
+                    tmp, 4, 1, tmpl))[0] for _ in range(5)]
+                mgr = AsyncCheckpointManager(f"{tmp}/async", interval=1,
+                                             keep=2)
+                accept_ms = [wall_ms(lambda i=i: mgr.maybe_save(
+                    i, state))[0] for i in range(5)]
+                flush_ms = wall_ms(mgr.flush)[0]
+                mgr.close()
+                back = restore_chain(tmp, 4, 1, tmpl)
+            row["checkpoint"] = {
+                "bytes": sum(t.numel() * t.element_size() for t in
+                             (*state.z, state.ndt, state.ntw, state.nt,
+                              state.eta)),
+                "save_ms": save_ms, "async_accept_ms": accept_ms,
+                "async_writes": mgr.stats["writes"],
+                "async_waits": mgr.stats["waits"],
+                "async_last_flush_ms": flush_ms, "restore_chain_ms":
+                    restore_ms,
+                "restored_equal": bool(torch.equal(back.ndt, state.ndt[1])
+                                       and torch.equal(back.eta,
+                                                       state.eta[1]))}
+        emit(row)
+        where = f"supervised {label}"
+        check(transparent, f"{where}: the probe changed the run")
+        check(max(s_on) <= min(s_off), f"{where}: the probe adds host "
+              f"syncs ({s_on} against {s_off})")
+        check(rep_c.alive.all() and not rep_c.status.any(),
+              f"{where}: a clean run flagged {rep_c.status.tolist()}")
+        check(bool(rep_n.status[1] & F_NAN_ETA)
+              and rep_n.restarts[1] == 2
+              and rep_n.alive.tolist() == [True, False, True, True]
+              and actions(rep_n, 1)[-1] == "quarantine",
+              f"{where}: NaN η not restarted twice then quarantined "
+              f"{row['nan_eta']}")
+        check(survivors_equal and row["nan_eta"]["combined_equal"],
+              f"{where}: the quarantine is not exact")
+        check(bool(rep_k.status[2] & F_KILLED) and rep_k.alive.all()
+              and f"restart_from_step_{kill_step}" in actions(rep_k, 2)
+              and mse_k < 0.6 * var_y,
+              f"{where}: the killed chain {row['kill']}")
+        check(bool(rep_x.status[3] & F_NDT_SUM)
+              and bool(rep_x.status[3] & F_NTW_NEG) and row["corrupt"][
+                  "finite"], f"{where}: corrupt counts {row['corrupt']}")
+        check(all(variants[k][v] == launches[k]
+                  for k, v in main_variant(cfg).items()),
+              f"{where}: launches by variant {variants}")
+        if "checkpoint" in row:
+            check(row["checkpoint"]["restored_equal"],
+                  f"{where}: a restored chain differs")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="port smoke test on one card")
     ap.add_argument("--seed", type=int, default=0)
@@ -1143,26 +1401,37 @@ def main() -> int:
         return {"replaced_ms": event_ms(lambda: run("warp"), reps),
                 "replaced_draws_equal": same}
 
-    def sweep_by_sweep(a, kw, real, index=None):
+    def sweep_by_sweep(a, kw, real, index=None, torch_sum=False):
         """B3 held sweep by sweep from identical states (ROADMAP C2): for
         k = 1 .. n_sweeps, the kernel's launch of k sweeps against the
         plain version's sweep k alone, handed the kernel's own z and ndt
         after k − 1 sweeps (its launch of k − 1 sweeps from the same
         start), the launch-start tables and the block-local tables they
         imply, and sweep k's uniforms.  The mismatch of each sweep over
-        real tokens."""
+        real tokens; with `torch_sum`, also that of a plain version whose
+        running Σ_t η_t·N_dt starts from one torch reduction in place of
+        the kernels' lane order (`ref.lane_eta_dot`, ROADMAP C5)."""
         tokens, msk, sd, z0, ndt0, y, il, ntw_t, nt, eta = a
         one = {k: v for k, v in kw.items() if k != "n_sweeps"}
-        z, ndt, out = z0, ndt0, []
+        z, ndt, out, out_torch = z0, ndt0, [], []
+        lane_order = ref.lane_eta_dot
+        orders = [(out, lane_order)]
+        if torch_sum:
+            orders.append((out_torch, lambda n_, e_: (n_ * e_).sum(-1)))
         for k in range(1, kw["n_sweeps"] + 1):
             z_k, ndt_k = slda_train.slda_train_sweeps_cuda(
                 *a, n_sweeps=k, topic_index=index, **one)
-            z_p, _ = ref.slda_train_sweep_from(
-                tokens, msk, sd, z0, z, ndt, y, il, ntw_t, nt, eta,
-                sweep=k - 1, topic_index=index, **one)
-            out.append(float(((z_k != z_p) & (msk > 0)).sum()) / real)
+            for rates, eta_dot in orders:
+                ref.lane_eta_dot = eta_dot
+                try:
+                    z_p, _ = ref.slda_train_sweep_from(
+                        tokens, msk, sd, z0, z, ndt, y, il, ntw_t, nt, eta,
+                        sweep=k - 1, topic_index=index, **one)
+                finally:
+                    ref.lane_eta_dot = lane_order
+                rates.append(float(((z_k != z_p) & (msk > 0)).sum()) / real)
             z, ndt = z_k, ndt_k
-        return out
+        return (out, out_torch) if torch_sum else out
 
     # the shapes [R, T] of the prefix sums the plain samplers take in the
     # rows below, the dense draw's and the sparse draw's three (read by the
@@ -1313,19 +1582,25 @@ def main() -> int:
         check(mis <= MISMATCH_MAX, f"B2 {label}: draw mismatch {mis}")
         check(exact, f"B2 {label}: ndt differs from counts of z")
 
-    # ---- B3: fused training launches, chain-sharded corpus
-    for label, t, docs, sweeps, product in (
-            ("slice", T0, train.n_docs, 8, True),
-            ("T128", 128, 1024, 8, True),
-            ("slice_log", T0, train.n_docs, 2, False),
-            ("T512", 512, 1024, 8, True)):
+    # ---- B3: fused training launches, chain-sharded corpus; the T = 512
+    # rows in both forms (the log form's inputs from a generator of their
+    # own, so that every other row keeps the inputs it had), each held
+    # against the torch-sum order of Σ_t η_t·N_dt as well (ROADMAP C5)
+    gen_c5 = torch.Generator(device=dev).manual_seed(args.seed + 3)
+    for label, t, docs, sweeps, product, g3 in (
+            ("slice", T0, train.n_docs, 8, True, gen),
+            ("T128", 128, 1024, 8, True, gen),
+            ("slice_log", T0, train.n_docs, 2, False, gen),
+            ("T512", 512, 1024, 8, True, gen),
+            ("T512_log", 512, 1024, 8, False, gen_c5)):
         sh = partition(train.map(lambda x: x[:docs]), M)
         d = sh.n_docs
-        z = torch.randint(0, t, tuple(sh.tokens.shape), **int32)
+        i3 = dict(int32, generator=g3)
+        z = torch.randint(0, t, tuple(sh.tokens.shape), **i3)
         ndt, ntw, nt = counts_from_assignments(sh.tokens, sh.mask, z, t, W)
         ntw_t = ntw.transpose(1, 2).contiguous()
-        eta = torch.randn((M, t), device=dev, generator=gen) * 2.0
-        sd = torch.randint(0, 2 ** 31 - 1, (M, d), **int32)
+        eta = torch.randn((M, t), device=dev, generator=g3) * 2.0
+        sd = torch.randint(0, 2 ** 31 - 1, (M, d), **i3)
         inv_len = 1.0 / sh.mask.sum(-1).clamp(min=1.0)
         db = build_plan(sh, cfg).train_doc_block(d)
         a = (sh.tokens, sh.mask, sd, z, ndt, sh.y, inv_len, ntw_t, nt, eta)
@@ -1338,7 +1613,12 @@ def main() -> int:
         z_p, ndt_p = ref.slda_train_sweeps_chains(*a, **kw)
         real = float(sh.mask.sum())
         fused_mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
-        sweep_mis = sweep_by_sweep(a, kw, real)
+        c5 = {}
+        if t == 512:
+            sweep_mis, c5["torch_sum_sweep_mismatch"] = sweep_by_sweep(
+                a, kw, real, torch_sum=True)
+        else:
+            sweep_mis = sweep_by_sweep(a, kw, real)
         mis = max(sweep_mis)
         # the replaced kernel's draws, which the cluster variant repeats
         same = replaced_agrees(
@@ -1369,7 +1649,7 @@ def main() -> int:
                "N": sh.max_len, "T": t, "W": W, "doc_block": db,
                "sweeps": sweeps, "product_form": product,
                "variant": kind, "real_tokens": real,
-               "draw_mismatch": mis, "sweep_mismatch": sweep_mis,
+               "draw_mismatch": mis, "sweep_mismatch": sweep_mis, **c5,
                "fused_mismatch": fused_mis, "max_abs_err": err,
                "counts_exact": exact, "refresh_exact": refresh_exact,
                "ms": ms, "replaced_ms": replaced_ms, "plain_ms": plain,
@@ -1572,21 +1852,26 @@ def main() -> int:
             # shaped like a sweep's (mass on the word's occupied topics)
             b4_in = (sh.tokens, sh.mask, ntw_t, index)
 
-    for label, t, cap in sparse_shapes:
+    # B3's sparse rows in the product form, and at T = 512 in the log
+    # form too (its inputs from B3's T512_log generator, ROADMAP C5)
+    for label, t, cap, product, g3 in (
+            [(lb, t_, c_, True, gen) for lb, t_, c_ in sparse_shapes]
+            + [("T512_log", 512, 32, False, gen_c5)]):
         docs = train.n_docs if t == T0 else 1024
         sh = partition(train.map(lambda x: x[:docs]), M)
         d = sh.n_docs
-        z = torch.randint(0, t, tuple(sh.tokens.shape), **int32)
+        i3 = dict(int32, generator=g3)
+        z = torch.randint(0, t, tuple(sh.tokens.shape), **i3)
         ndt, ntw, nt = counts_from_assignments(sh.tokens, sh.mask, z, t, W)
         ntw_t = ntw.transpose(1, 2).contiguous()
         index = index_of(ntw_t, cap)            # launch-frozen
-        eta = torch.randn((M, t), device=dev, generator=gen) * 2.0
-        sd = torch.randint(0, 2 ** 31 - 1, (M, d), **int32)
+        eta = torch.randn((M, t), device=dev, generator=g3) * 2.0
+        sd = torch.randint(0, 2 ** 31 - 1, (M, d), **i3)
         inv_len = 1.0 / sh.mask.sum(-1).clamp(min=1.0)
         db = build_plan(sh, cfg).train_doc_block(d)
         a = (sh.tokens, sh.mask, sd, z, ndt, sh.y, inv_len, ntw_t, nt, eta)
         kw = dict(alpha=cfg.alpha, beta=cfg.beta, rho=cfg.rho, n_sweeps=8,
-                  doc_block=db, supervised=True, product_form=True)
+                  doc_block=db, supervised=True, product_form=product)
         (z_k, ndt_k), kind = variant_of(
             slda_train.variant_launches,
             lambda: slda_train.slda_train_sweeps_cuda(
@@ -1599,7 +1884,12 @@ def main() -> int:
             sh.mask)
         real = float(sh.mask.sum())
         fused_mis = float(((z_k != z_p) & (sh.mask > 0)).sum()) / real
-        sweep_mis = sweep_by_sweep(a, kw, real, index)
+        c5 = {}
+        if t == 512:
+            sweep_mis, c5["torch_sum_sweep_mismatch"] = sweep_by_sweep(
+                a, kw, real, index, torch_sum=True)
+        else:
+            sweep_mis = sweep_by_sweep(a, kw, real, index)
         mis = max(sweep_mis)
         err = float((ndt_k - ndt_p).abs().max())
         recount, _, _ = counts_from_assignments(sh.tokens, sh.mask, z_k, t,
@@ -1615,16 +1905,18 @@ def main() -> int:
             *a, topic_index=index, **kw), 1, warm=False)
         copies = M * -(-d // db)
         k_cap = index[0].shape[-1]
+        form = "B3_product" if product else "B3_log"
         b_ms, b_by = bound_ms(
             list(a) + list(index) + [z_k, ndt_k],
-            ((OPS_PER_TOPIC["B3_product"] - DENSE_DRAW_OPS) * t
+            ((OPS_PER_TOPIC[form] - DENSE_DRAW_OPS) * t
              + sparse_draw_ops(t, k_cap, share)) * real * 8,
             extra_bytes=copies * W * t * 4)
         row = {"phase": "B3_sparse", "shape": label, "M": M, "D": d,
                "N": sh.max_len, "T": t, "W": W, "cap": k_cap,
-               "doc_block": db, "sweeps": 8, "product_form": True,
+               "doc_block": db, "sweeps": 8, "product_form": product,
                "real_tokens": real, "draw_mismatch": mis,
-               "sweep_mismatch": sweep_mis, "fused_mismatch": fused_mis,
+               "sweep_mismatch": sweep_mis, **c5,
+               "fused_mismatch": fused_mis,
                "max_abs_err": err, "counts_exact": exact,
                "stage2_share": share, "variant": kind, "ms": ms,
                "replaced_ms": replaced_ms, "dense_ms": dense_ms,
@@ -2165,6 +2457,19 @@ def main() -> int:
                   f"ragged_small_buckets D={d} {mode}: draws or counts "
                   f"differ")
 
+    # ---- supervised: checkpointed training under the health probe, with
+    # faults injected, at the slice's full scale at spl 1 and 8 dense and
+    # at 8 sparse; each config's launches zeroed before its runs and read
+    # after them
+    def main_variant(run_cfg):
+        is_sparse = run_cfg.sampler_mode == "sparse"
+        return {"B1": slda_predict.variant(T0, is_sparse, test.max_len),
+                "B2": slda_gibbs.variant(T0), "B3": "cluster"}
+    supervised = supervised_phase(
+        args.seed, dev, smi, train, test,
+        (("spl1", cfg), ("spl8", fused), ("spl8_sparse", sparse_fused)),
+        zero_counts, read_counts, main_variant)
+
     # ---- where the time goes: one simple-average run under the profiler
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2257,6 +2562,11 @@ def main() -> int:
         "B3": counted["end_to_end_fused", 8][0]["B3"],
         "B4": sum(sum(run.values()) for run in sparse_runs),
         **lm_launches, **ssm_launches}
+    # and in the supervised phase's runs (B4 in its sparse launches)
+    supervised_of = {k: sum(run[0][k] for run in supervised.values())
+                     for k in ("B1", "B2", "B3")}
+    supervised_of["B4"] = sum(sum(run[1].values())
+                              for run in supervised.values())
     # B1's, B2's and B3's launches in those runs by variant (all of them
     # lane, half_warp and cluster, checked)
     variants_of = {"B1": counted["end_to_end", 1][2]["B1"],
@@ -2290,6 +2600,8 @@ def main() -> int:
         "library_ms": rows[k].get("library_ms"),
         **({"variant": rows[k]["variant"]} if "variant" in rows[k] else {}),
         **({"variant_launches": variants_of[k]} if k in variants_of
+           else {}),
+        **({"supervised_launches": supervised_of[k]} if k in supervised_of
            else {})}
         for k, (name, src, rep) in sources.items()]})
     print(smi, flush=True)

@@ -12,6 +12,9 @@ from .parallel import (ALGORITHMS, predict_chains, predict_chains_keyed,
                        run_naive, run_nonparallel, run_simple_average,
                        run_weighted_average, train_chains,
                        train_chains_keyed)
+from .supervisor import (ChainSupervisor, EnsembleHealthError, HealthConfig,
+                         RecoveryPolicy, SupervisorDraws, SupervisorReport,
+                         seeded_draws, supervised_run_average)
 
 __all__ = [
     "Corpus", "GibbsState", "SLDAConfig", "SLDAModel", "apply_count_deltas",
@@ -23,5 +26,7 @@ __all__ = [
     "median", "simple_average", "weighted_average", "ALGORITHMS",
     "predict_chains", "predict_chains_keyed", "run_naive", "run_nonparallel",
     "run_simple_average", "run_weighted_average", "train_chains",
-    "train_chains_keyed",
+    "train_chains_keyed", "ChainSupervisor", "EnsembleHealthError",
+    "HealthConfig", "RecoveryPolicy", "SupervisorDraws", "SupervisorReport",
+    "seeded_draws", "supervised_run_average",
 ]

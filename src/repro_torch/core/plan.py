@@ -238,6 +238,11 @@ class ExecutionPlan:
         return self.corpus.y
 
     @functools.cached_property
+    def _real_tokens(self) -> torch.Tensor:
+        """Real tokens a chain [M] (the supervisor's count probe)."""
+        return self.corpus.lengths().sum(-1)
+
+    @functools.cached_property
     def _inv_len_b(self) -> list:
         return self.corpus.split_docs(1.0 / self._lengths)
 
@@ -346,7 +351,7 @@ class ExecutionPlan:
         return every > 0 and it % every == 0
 
     def train_em(self, state0: GibbsState, draws, *, em_hook=None,
-                 status0=None):
+                 status0=None, it_offset: int = 0):
         """The stochastic-EM loop, `cfg.n_iters` Gibbs sweeps in all.  At
         sweeps_per_launch=1 each iteration is one sweep under its uniforms
         f32 [M, D, ctr_stride]; above, each EM boundary follows one fused
@@ -359,7 +364,10 @@ class ExecutionPlan:
 
         `em_hook(state, it, status) -> (state, status)`, when given, is
         called at every EM boundary `it` (the supervisor's attachment
-        point); `train_em` then returns `(state, status)`, else `state`."""
+        point); `train_em` then returns `(state, status)`, else `state`.
+        `it` is the boundary's index plus `it_offset`, which offsets the
+        rebuild cadence too, so that a loop run round by round (the
+        supervisor's) sees the boundaries and rebuilds of one run."""
         spl, n_full, rem = self.sweep_schedule()
         sizes = [spl] * n_full + ([rem] if rem else [])
         state, status, it = state0, status0, -1
@@ -371,10 +379,10 @@ class ExecutionPlan:
             else:
                 z_new, ndt = self._blocks_launch(state, ntw, draw, n_sweeps,
                                                  index)
-            state = self._refresh_and_solve(z_new, ndt, state,
-                                            self._rebuild_now(it))
+            state = self._refresh_and_solve(
+                z_new, ndt, state, self._rebuild_now(it + it_offset))
             if em_hook is not None:
-                state, status = em_hook(state, it, status)
+                state, status = em_hook(state, it + it_offset, status)
         if it + 1 != len(sizes):
             raise ValueError(f"{it + 1} draws for {len(sizes)} EM "
                              "boundaries")

@@ -10,7 +10,11 @@ is ridge regression with prior mean μ; the closed form is
 
 T is small (tens), so a dense float32 solve is exact enough and cheap.
 Leading dims of `zbar` [..., D, T] and `y` [..., D] are independent
-chains, solved in one batched call.
+chains, solved in one batched call.  The solves check no errors
+(`torch.linalg.solve_ex`): on the card the check is a host read every EM
+boundary, and a singular or non-finite system of one chain would raise
+for every chain; its η comes back non-finite instead, which the
+supervisor's probe flags (`core.supervisor`).
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ def solve_eta(zbar: torch.Tensor, y: torch.Tensor,
     zt = zbar.transpose(-1, -2)
     gram = zt @ zbar / cfg.rho + _eye(zbar) / cfg.sigma
     rhs = (zt @ y[..., None])[..., 0] / cfg.rho + cfg.mu / cfg.sigma
-    return torch.linalg.solve(gram, rhs)
+    return torch.linalg.solve_ex(gram, rhs).result
 
 
 def solve_eta_ols(zbar: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -38,4 +42,4 @@ def solve_eta_ols(zbar: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     pooled sub-samples."""
     zt = zbar.transpose(-1, -2)
     gram = zt @ zbar + 1e-6 * _eye(zbar)
-    return torch.linalg.solve(gram, (zt @ y[..., None])[..., 0])
+    return torch.linalg.solve_ex(gram, (zt @ y[..., None])[..., 0]).result

@@ -18,20 +18,23 @@ import torch
 
 INT32_MAX = 2 ** 31 - 1
 
-# the streams a run draws from (one generator per chain in each)
-TRAIN, PREDICT, PREDICT_TRAIN = 0, 1, 2
+# the streams a run draws from (one generator per chain in each); a
+# supervised run's EM rounds and its fresh re-inits draw from streams of
+# their own (`core.supervisor`)
+TRAIN, PREDICT, PREDICT_TRAIN, SUPERVISED_ROUND, FRESH_INIT = 0, 1, 2, 3, 4
+
+
+def generator(device, *words: int) -> torch.Generator:
+    """A generator on `device` seeded from the integers `words`."""
+    state = np.random.SeedSequence(list(words)).generate_state(2, np.uint32)
+    g = torch.Generator(device=device)
+    g.manual_seed(int(state[0]) << 32 | int(state[1]))
+    return g
 
 
 def chain_generators(seed: int, m: int, device, stream: int = TRAIN):
     """One generator per chain, seeded from (seed, stream, chain)."""
-    gens = []
-    for c in range(m):
-        state = np.random.SeedSequence([seed, stream, c]).generate_state(
-            2, np.uint32)
-        g = torch.Generator(device=device)
-        g.manual_seed(int(state[0]) << 32 | int(state[1]))
-        gens.append(g)
-    return gens
+    return [generator(device, seed, stream, c) for c in range(m)]
 
 
 def _stack(gens, draw):
@@ -46,20 +49,32 @@ def train_draws(gens, n_docs: int, max_len: int, n_topics: int,
     above, one seed tensor int32 [M, D] in [0, 2^31 - 1) per fused launch
     (⌈n_iters / sweeps_per_launch⌉ of them, the remainder launch
     included), as the reference draws them."""
+    z_init = init_topics(gens, n_docs, max_len, n_topics)
+    return z_init, em_draws(gens, n_docs, max_len, n_iters,
+                            sweeps_per_launch)
+
+
+def init_topics(gens, n_docs: int, max_len: int, n_topics: int):
+    """The initial topics int32 [M, D, N], uniform over the topics."""
     dev = gens[0].device
-    shape = (n_docs, max_len)
-    z_init = _stack(gens, lambda g: torch.randint(
-        0, n_topics, shape, generator=g, device=dev, dtype=torch.int32))
+    return _stack(gens, lambda g: torch.randint(
+        0, n_topics, (n_docs, max_len), generator=g, device=dev,
+        dtype=torch.int32))
+
+
+def em_draws(gens, n_docs: int, max_len: int, n_iters: int,
+             sweeps_per_launch: int = 1):
+    """An iterator over the draws of `n_iters` EM iterations, made lazily
+    (`train_draws`)."""
+    dev = gens[0].device
     if sweeps_per_launch > 1:
-        draws = (_stack(gens, lambda g: torch.randint(
+        return (_stack(gens, lambda g: torch.randint(
             0, INT32_MAX, (n_docs,), generator=g, device=dev,
             dtype=torch.int32))
             for _ in range(-(-n_iters // sweeps_per_launch)))
-    else:
-        draws = (_stack(gens, lambda g: torch.rand(shape, generator=g,
-                                                   device=dev))
-                 for _ in range(n_iters))
-    return z_init, draws
+    return (_stack(gens, lambda g: torch.rand((n_docs, max_len), generator=g,
+                                              device=dev))
+            for _ in range(n_iters))
 
 
 def predict_draws(gens, n_docs: int, max_len: int, n_topics: int):

@@ -51,7 +51,10 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Inverse-CDF draw: z = #{t < T : c_t < u * c_{T-1}} with c the inclusive
-// prefix sum of p (p[k] holds topic lane + 32k; topics past T never win).
+// prefix sum of p (p[k] holds topic lane + 32k; topics past T never win),
+// clamped to T - 1: the count reaches T only where the total is not
+// positive (negative counts, which the supervisor's probes flag), and a
+// chain in that state must still not index past its table.
 // c_t is summed strictly left to right, c_t = (..((p_0 + p_1) + p_2)..) + p_t,
 // the order of the plain version's prefix sum (`mathutil.prefix_sum`).
 // The warp stages p in `sp` and runs that one chain of T adds, every lane
@@ -85,7 +88,7 @@ __device__ __forceinline__ int draw_topic(const float (&p)[K], float u,
     z += __popc(__ballot_sync(kFull, t < T && sc[min(t, T - 1)] < thr));
   }
   __syncwarp();  // the stage is rewritten by the next token
-  return z;
+  return min(z, T - 1);  // T only where the total is not positive
 }
 
 // ---------------------------------------------------------------------------
@@ -436,8 +439,9 @@ __device__ __forceinline__ int draw_topic_half(float p, float u, int gl,
   __syncwarp();  // sp is rewritten by the next token
   const float total = __shfl_sync(kFull, c, T - 1, 16);
   const float thr = u * total;
-  return __popc(group_bits<16>(__ballot_sync(kFull, gl < T && c < thr),
-                               shift));
+  return min(__popc(group_bits<16>(
+                 __ballot_sync(kFull, gl < T && c < thr), shift)),
+             T - 1);  // as `draw_topic`
 }
 
 // The sparse draw for a half-warp group (T <= 16, topic t in lane t of

@@ -338,7 +338,7 @@ predict_lane_kernel(const int* __restrict__ tok_t,    // [N, D]
           for (int w = 1; w < TM; w *= 2)
 #pragma unroll
             for (int t = 0; t < TM; t += 2 * w) below[t] += below[t + w];
-          z_new = below[0];
+          z_new = min(below[0], T - 1);  // as `draw_topic`
         }
 #pragma unroll
         for (int t = 0; t < TM; ++t)

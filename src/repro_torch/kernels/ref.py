@@ -8,9 +8,11 @@ time (the dependence along a document is sequential); chains are folded
 into the document-row axis around one stacked `[M·W, T]` table with
 per-chain token-id offsets `w + c·W` (the fused training sweeps fold
 chain × doc block around `[M·B·W, T]`, one private table per block).
-The operation order is the reference's (`repro.kernels.ref`), but for the
-draw's prefix sum: the reference's `p @ triu(T)` is taken here left to
-right (`mathutil.prefix_sum`), the order of the kernels.
+The operation order is the reference's (`repro.kernels.ref`), but for two
+sums taken here in the kernels' order: the draw's prefix sum (the
+reference's `p @ triu(T)`, left to right: `mathutil.prefix_sum`) and the
+training sweeps' Σ_t η_t·N_dt (a sum a lane, then a butterfly:
+`lane_eta_dot`).
 
 Each takes `topic_index=(idx, vmask, occm)` (`[M, W, cap]`, `[M, W, cap]`,
 `[M, W, T]`, `core.types.topic_occupancy_index` of the chain's table) to
@@ -37,9 +39,12 @@ sparse_tally = {"tokens": 0, "stage2": 0}
 
 def _draw(p, u):
     """Inverse-CDF categorical draw: z = #{t : c_t < u·c_{T-1}}, c the
-    prefix sum of p taken left to right (`mathutil.prefix_sum`)."""
+    prefix sum of p taken left to right (`mathutil.prefix_sum`), clamped
+    to T - 1 as the kernels clamp it (the count reaches T only where the
+    total is not positive)."""
     c = prefix_sum(p)
-    return (c < (u * c[:, -1])[:, None]).sum(-1).to(torch.int32)
+    z = (c < (u * c[:, -1])[:, None]).sum(-1)
+    return z.clamp(max=p.shape[-1] - 1).to(torch.int32)
 
 
 def _draw_rows(p, u, w, m, index):
@@ -53,6 +58,33 @@ def _draw_rows(p, u, w, m, index):
     sparse_tally["tokens"] = sparse_tally["tokens"] + real.sum()
     sparse_tally["stage2"] = sparse_tally["stage2"] + (real & stage2).sum()
     return z
+
+
+def lane_eta_dot(ndt, eta_rows):
+    """Σ_t η_t·N_dt of each row [R, T] in the order of the sampler
+    kernels' groups of G lanes (G = 16 at T <= 16, else 32): lane l sums
+    its topics l, l + G, l + 2G, .. left to right, then the group adds
+    the lanes' sums by a butterfly (lane l with lane l ^ o, o = G/2, ..,
+    1), which leaves every lane with the same float.  A sweep's draws
+    depend on this sum through every topic's Gaussian term, so the
+    plain samplers take it in this order: one torch reduction,
+    `(ndt * eta_rows).sum(-1)`, adds in another order on the card and
+    parted B3's draws from the kernel's at T = 512 (ROADMAP C5)."""
+    R, T = ndt.shape
+    G = 16 if T <= 16 else 32
+    K = -(-T // G)
+    prod = torch.nn.functional.pad(ndt * eta_rows, (0, K * G - T))
+    prod = prod.reshape(R, K, G)
+    acc = prod[:, 0]
+    for k in range(1, K):
+        acc = acc + prod[:, k]
+    lanes = torch.arange(G, device=ndt.device)
+    o = G // 2
+    while o:
+        acc = acc + acc[:, lanes ^ o]
+        o //= 2
+    return acc[:, 0]
+
 
 
 def _fold_index(topic_index, copies: int = 1):
@@ -92,7 +124,7 @@ def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
     T = ndt_f.shape[-1]
     iota = torch.arange(T, device=tok_f.device)[None, :]
     ndt = ndt_f
-    s = (ndt * eta_rows).sum(-1)            # running Σ_t η_t N_dt
+    s = lane_eta_dot(ndt, eta_rows)         # running Σ_t η_t N_dt
     z_out = torch.empty_like(z_f)
     w_beta = vocab_size * beta
     for n in range(N):

@@ -162,3 +162,18 @@ class ServingEngine:
         """Undo a drop: chains share nothing, so restoring the weight is
         exact."""
         self.chain_weights[idx] = weight
+
+    def quarantine_unhealthy(self, per_chain_loss, logits=None, *,
+                             loss_z_cut: float = 4.0):
+        """Serving-side health cut: drop every chain whose probe loss is
+        non-finite or a robust-z outlier (`metrics.ensemble_health`, the
+        statistic the training supervisor uses).  The weights are
+        multiplied by the alive mask, so an operator's weight of 0 stays
+        0.  Returns the health report."""
+        from repro_torch.metrics import ensemble_health
+        dev = self.chain_weights.device
+        loss = torch.as_tensor(per_chain_loss, dtype=torch.float32,
+                               device=dev)
+        alive, report = ensemble_health(loss, logits, loss_z_cut=loss_z_cut)
+        self.chain_weights = self.chain_weights * alive
+        return report

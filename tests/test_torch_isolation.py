@@ -119,6 +119,31 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         serve_lm.main(["--smoke"])
 
 
+def test_fault_tolerance_entry_points_default_to_the_card(no_cuda,
+                                                          tmp_path):
+    """The supervisor, the fault plans and the health metrics run on the
+    card unless asked for the CPU; asked, a supervised run with a
+    checkpoint directory completes."""
+    from repro_torch.core import supervised_run_average
+    from repro_torch.metrics import ensemble_health, robust_z
+    from repro_torch.testing import no_faults, poison, random_fault_plan
+    cfg = SLDAConfig(n_topics=4, vocab_size=40, n_iters=2,
+                     n_pred_burnin=1, n_pred_samples=1)
+    c, _ = make_slda_corpus(0, 16, 40, 4, 8, device="cpu")
+    tr, te = train_test_split(c, 8)
+    for call in (lambda: supervised_run_average(0, tr, te, cfg, 2),
+                 lambda: no_faults(2), lambda: poison(2, 0, 1),
+                 lambda: random_fault_plan(0, 2, 3),
+                 lambda: robust_z([1.0, 2.0]),
+                 lambda: ensemble_health([1.0, 2.0])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    y, rep = supervised_run_average(
+        0, tr, te, cfg, 2, ckpt_dir=str(tmp_path), round_iters=1,
+        fault_hook=no_faults(2, device="cpu").hook(), device="cpu")
+    assert y.device.type == "cpu" and rep.alive.all() and rep.rounds == 2
+
+
 def test_tf32_is_refused(monkeypatch):
     check_full_fp32()
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)

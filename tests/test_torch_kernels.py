@@ -338,6 +338,48 @@ def test_plain_prefix_sum_is_the_chain_at_every_T():
             assert torch.equal(prefix_sum(p), _chain(p)), (T, lead)
 
 
+def _lane_model(ndt, eta):
+    """Σ_t η_t·N_dt of one row as the sampler kernels' group of G lanes
+    adds it, written as their loops: lane l's running sum over its topics
+    l, l + G, .. (`s_part += nd[k] * eta_r[k]` from 0), then the xor
+    butterfly of `group_sum` / `warp_sum` (v += shfl_xor(v, o), o = G/2
+    .. 1), read at lane 0, every float32 add rounded on its own."""
+    T = len(ndt)
+    G = 16 if T <= 16 else 32
+    f = np.float32
+    v = [f(0.0)] * G
+    for t in range(T):
+        v[t % G] = f(v[t % G] + f(f(ndt[t]) * f(eta[t])))
+    o = G // 2
+    while o:
+        v = [f(v[l] + v[l ^ o]) for l in range(G)]
+        o //= 2
+    return v[0]
+
+
+@pytest.mark.parametrize("T", [1, 3, 16, 17, 40, 128, 512])
+def test_plain_eta_dot_is_the_kernels_lane_order(T):
+    """ROADMAP C5: the plain samplers' running Σ_t η_t·N_dt starts from
+    the kernels' lane order, bit for bit (a torch reduction adds in
+    another order, which on the card parted B3's draws from the kernel's
+    at T = 512 on up to 4.5e-4 of a sweep's tokens)."""
+    rng = np.random.default_rng(T)
+    ndt = rng.integers(0, 9, (64, T)).astype(np.float32)
+    eta = (rng.normal(size=(64, T)) * 2).astype(np.float32)
+    got = ref.lane_eta_dot(torch.from_numpy(ndt), torch.from_numpy(eta))
+    want = [_lane_model(n, e) for n, e in zip(ndt, eta)]
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_dense_draw_stays_in_range_for_a_non_positive_total():
+    """A chain whose counts went negative (state the supervisor's probe
+    flags) draws at most T - 1, as the kernels clamp it, and not T, which
+    would index past its table."""
+    p = torch.tensor([[-5.0, 0.5, 0.25], [0.0, 0.0, 0.0], [1.0, 2.0, 3.0]])
+    u = torch.tensor([0.5, 0.5, 0.999])
+    assert ref._draw(p, u).tolist() == [2, 0, 2]
+
+
 def test_build_targets_hopper_without_fast_math():
     assert "-gencode=arch=compute_90a,code=sm_90a" in build.FLAGS
     assert not any("fast" in f for f in build.FLAGS)

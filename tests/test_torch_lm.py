@@ -278,3 +278,20 @@ def test_sample_token_topk_respects_support():
     g = torch.Generator().manual_seed(0)
     for _ in range(8):
         assert set(sample_token(logits, 1.0, 2, g).tolist()) <= {0, 1}
+
+
+@pytest.mark.parametrize("loss", [[2.30, float("nan"), 2.31],
+                                  [2.30, 2.28, 45.0]])
+def test_quarantine_unhealthy_matches_reference(loss):
+    """The serving-side health cut (a NaN probe loss, a robust-z outlier)
+    zeroes the same chains' weights as the reference's, and generation
+    after it serves the same tokens."""
+    jeng, eng = _engines("weighted")
+    j_rep = jeng.quarantine_unhealthy(jnp.asarray(loss, jnp.float32))
+    rep = eng.quarantine_unhealthy(loss)
+    np.testing.assert_array_equal(rep["alive"].numpy(),
+                                  np.asarray(j_rep["alive"]))
+    np.testing.assert_array_equal(eng.chain_weights.numpy(),
+                                  np.asarray(jeng.chain_weights))
+    assert float(eng.chain_weights.min()) == 0.0
+    np.testing.assert_array_equal(_generate(eng), _generate(jeng))
