@@ -124,7 +124,24 @@ Phases, one JSON line each:
                  launch on the main path's variant; train ms with the
                  probe on and off, the store's save, async accept and
                  restore ms reported
-  profile        one Simple Average run under torch.profiler, at each of
+  slda_serving   the sLDA prediction service (`repro_torch.serving`:
+                 fixed-slot micro-batches, one captured CUDA graph a
+                 bucket signature and sampler mode) on two rows, `mdna`
+                 (the slice's Weighted Average ensemble, its test
+                 documents as traffic) and `bench_shape` (the reference's
+                 serving benchmark: T 32, M 8, lengths to 256), each a
+                 closed-loop trace of 512 requests with 25% verbatim
+                 repeats (`serving_phase`): every request served ok; one
+                 capture after the first flush and none after; results
+                 bit-equal to an eager twin's and the padded layout's;
+                 `mdna`'s served MSE under 0.6·var(y_test); the sparse
+                 mode one more capture (finite, the MSE gate), back to
+                 dense none; drop / revive, hot reload, a torn checkpoint
+                 and NaN η at dispatch exact and capturing nothing;
+                 reported: a flush's replay, in-turn replay and eager ms
+                 by CUDA events, host ms a flush, latencies, docs/s,
+                 dummy share, layout, B1 and B4 launches
+  profile       one Simple Average run under torch.profiler, at each of
                  the two settings and sparse at 8, then over 8 length
                  buckets at the slice at spl 1 and 8 and Figure 7 at 8
                  beside Figure 7 padded: device busy time, idle share,
@@ -1265,6 +1282,428 @@ def supervised_phase(seed, dev, smi, train, test, runs, zero_counts,
         if "checkpoint" in row:
             check(row["checkpoint"]["restored_equal"],
                   f"{where}: a restored chain differs")
+    return out
+
+
+# the slda_serving phase: requests a row's closed-loop trace, the share
+# of them that re-submit an earlier one verbatim (the reference's
+# `benchmarks/bench_slda_serving.py` `make_trace`), the served MSE gate
+# as a share of var(y_test), and the CUDA-event timings' repetitions
+SERVE_REQUESTS = 512
+SERVE_REPEAT_FRAC = 0.25
+SERVE_MSE_FRAC = 0.6
+SERVE_TIMING_REPS = 30
+
+
+def serve_trace(seed, n_req, fresh, repeat_frac=SERVE_REPEAT_FRAC):
+    """A request trace, the reference's `make_trace` recipe: each request
+    re-submits an earlier one verbatim with probability `repeat_frac`,
+    else it is `fresh(rng)`, which returns (tokens, id).  Returns (docs,
+    ids), a repeat carrying its original's id."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    docs, ids = [], []
+    for _ in range(n_req):
+        if docs and rng.random() < repeat_frac:
+            j = int(rng.integers(len(docs)))
+            docs.append(docs[j])
+            ids.append(ids[j])
+            continue
+        doc, i = fresh(rng)
+        docs.append(doc)
+        ids.append(i)
+    return docs, ids
+
+
+def lognormal_doc(vocab, max_len, len_sigma=1.0):
+    """`fresh` for `serve_trace`: the reference's `make_trace` document
+    (log-normal length clipped to [1, max_len], uniform tokens), id -1."""
+    import numpy as np
+    mu = np.log(max(2.0, max_len / 6.0))
+
+    def fresh(rng):
+        n = int(np.clip(np.rint(rng.lognormal(mu, len_sigma)), 1, max_len))
+        return rng.integers(0, vocab, size=n).astype(np.int32), -1
+    return fresh
+
+
+def serving_rows(seed, dev, train, test):
+    """`serving_phase`'s two rows.  `mdna`: the slice at full width, the
+    Weighted Average ensemble of MD&A (`train_chains` over the 3000
+    training documents in 4 shards, spl 1), its 1216 test documents in
+    order as the trace's fresh requests; the slots calibrated on the
+    training lengths (32 slots, 4 rungs, max_doc_len 120).
+    `bench_shape`: the reference's own serving configuration
+    (benchmarks/bench_slda_serving.py: 512 training documents, W 1000,
+    T 32, log-normal lengths to 256, 60 EM iterations, M = 8, 32 slots,
+    4 rungs) with its `make_trace(123, ...)` recipe."""
+    import numpy as np
+    import torch
+    from repro_torch import fig6_mdna
+    from repro_torch.core import SLDAConfig, partition, train_chains
+    from repro_torch.core.parallel import _shards
+    from repro_torch.data import make_slda_corpus
+    from repro_torch.kernels import slda_predict
+    from repro_torch.serving import ServiceConfig
+
+    def lengths(corpus):
+        return corpus.mask.sum(-1).to(torch.int64).cpu().numpy()
+
+    cfg, M = fig6_mdna.CFG, fig6_mdna.M
+    mdna_models, mdna_models_b = (train_chains(
+        seed + k, _shards(train, M, cfg, dev), cfg, device=dev)[1]
+        for k in (1, 2))
+    test_len, test_tok = lengths(test), test.tokens.cpu().numpy()
+    test_docs = [test_tok[d, :test_len[d]] for d in range(test.n_docs)]
+    next_test = iter(range(test.n_docs))
+
+    def mdna_next(rng):
+        i = next(next_test)
+        return test_docs[i], i
+
+    def mdna_fresh(n):
+        idx = [next(next_test) for _ in range(n)]
+        return [test_docs[i] for i in idx], idx
+
+    cfg_b = SLDAConfig(n_topics=32, vocab_size=1000, rho=0.25, n_iters=60)
+    corpus_b, _ = make_slda_corpus(seed, 512, 1000, 32, 256, rho=0.25,
+                                   doc_len_dist="lognormal", len_sigma=1.0,
+                                   len_skew=6.0, device=dev)
+    bench_models, bench_models_b = (train_chains(
+        seed + k, partition(corpus_b, 8), cfg_b, device=dev)[1]
+        for k in (1, 2))
+    bench_doc = lognormal_doc(1000, 256)
+    bench_rng = np.random.default_rng(124)
+
+    def bench_fresh(n):
+        return [bench_doc(bench_rng)[0] for _ in range(n)], [-1] * n
+
+    return (
+        ("mdna", cfg, mdna_models, mdna_models_b, ServiceConfig.calibrated(
+            lengths(train), max_doc_len=fig6_mdna.DOC_LEN, batch_docs=32,
+            n_buckets=4, combine="weighted"),
+         *serve_trace(seed, SERVE_REQUESTS, mdna_next), mdna_fresh,
+         test.y.cpu().numpy(), float(test.y.var(unbiased=False)),
+         slda_predict.variant(cfg.n_topics, False, fig6_mdna.DOC_LEN)),
+        ("bench_shape", cfg_b, bench_models, bench_models_b,
+         ServiceConfig.calibrated(lengths(corpus_b), max_doc_len=256,
+                                  batch_docs=32, n_buckets=4),
+         *serve_trace(123, SERVE_REQUESTS, bench_doc), bench_fresh, None,
+         None, slda_predict.variant(32, False, 256)))
+
+
+def serving_phase(seed, dev, smi, rows, zero_counts, read_counts):
+    """The sLDA prediction service (`repro_torch.serving`) on the card,
+    for each row of `rows`: (label, cfg, models, models_b, svc_cfg, trace
+    docs, trace ids, fresh(n) -> n unseen documents, y of the ids or
+    None, var_y, B1's main variant).  Gates: every request of the
+    closed-loop trace is served `ok`; one capture after the first flush
+    and none in steady traffic; each fresh result bit-equal to an eager
+    (uncaptured) twin's and to the padded layout's at the same batch
+    indices; the served MSE under SERVE_MSE_FRAC·var(y) where the row has
+    labels; `set_sampler_mode("sparse")` one more capture, finite ŷ (and
+    the MSE gate), switching back none; a mid-stream drop and revive
+    capturing nothing, the dropped combine the survivors' and the revive
+    the first outputs, bit for bit; a hot reload bumping the epoch,
+    capturing nothing and equal to a fresh service on the new models at
+    the aligned batch index, a torn checkpoint rejected with the old epoch
+    serving on; NaN η after load quarantined at dispatch, every ŷ a clean
+    service's with that chain dropped.  Reported: one flush's dispatch by
+    CUDA events (replay with the plan's side streams captured, replay of
+    a graph captured with the rungs in turn, and eager), host ms a flush,
+    latencies, docs/s, the dummy share, the layout, and B1's and B4's
+    launches (the kernels' counters see a capture, never a replay: real
+    launches = counted − captured calls + replays × rungs).  Returns
+    {label: {"B1": n, "B4": n}}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.core.plan import build_plan
+    from repro_torch.kernels import slda_predict
+    from repro_torch.serving import SLDAPredictionService
+    from repro_torch.serving.slda_service import (_GraphDispatch,
+                                                  _combine_yhat,
+                                                  eager_dispatch)
+    from repro_torch.testing import poison_model_table, truncate_chain_file
+
+    class EagerService(SLDAPredictionService):
+        """The uncaptured twin: every flush dispatches eagerly."""
+
+        def _dispatch_fn(self, plan_key):
+            return eager_dispatch
+
+    def serve(svc, docs):
+        rids = [svc.submit(d) for d in docs]
+        svc.drain()
+        torch.cuda.synchronize()
+        return [svc.result(r) for r in rids]
+
+    def same(a, b):
+        return (a.status == b.status and a.from_cache == b.from_cache
+                and (a.from_cache or (
+                    a.yhat == b.yhat
+                    and np.array_equal(a.yhat_chains, b.yhat_chains)
+                    and np.array_equal(a.zbar, b.zbar))))
+
+    def median_ms(fn, reps=SERVE_TIMING_REPS):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            out.append(s.elapsed_time(e))
+        return float(np.median(out))
+
+    def graph_launches(services):
+        """Real B1 and B4 launches of the services' graphs beyond what
+        the counters saw: − captured calls + replays × rungs."""
+        b1 = b4 = 0
+        for svc in services:
+            for key, g in svc._graphs.items():
+                n = (g.replays - 1) * g.rungs
+                b1 += n
+                b4 += n if key[0][1].sampler_mode == "sparse" else 0
+        return b1, b4
+
+    out = {}
+    for (label, cfg, models, models_b, svc_cfg, trace, ids, fresh, y,
+         var_y, b1_variant) in rows:
+        t_row = time.perf_counter()
+        where = f"slda_serving {label}"
+        B, M = svc_cfg.batch_docs, int(models.eta.shape[0])
+        mk = lambda m=models, **kw: SLDAPredictionService(
+            m, cfg, dataclasses.replace(svc_cfg, **kw), seed=seed,
+            device=dev)
+        zero_counts()
+
+        # ---- the closed-loop trace: the first micro-batch captures, the
+        # rest is steady traffic (each flush timed on the host's clock)
+        svc = mk()
+        warm = serve(svc, trace[:B])
+        captures_warm = svc.stats()["traces"]
+        flush_ms, flush = [], svc.flush
+
+        def timed_flush():
+            t = time.perf_counter()
+            done = flush()
+            flush_ms.append((time.perf_counter() - t) * 1e3)
+            return done
+        svc.flush = timed_flush
+        t0 = time.perf_counter()
+        steady = serve(svc, trace[B:])
+        wall_s = time.perf_counter() - t0
+        del svc.flush
+        served = warm + steady
+        st0 = svc.stats()
+        all_ok = all(r.status == "ok" for r in served)
+        fresh_lat = [r.latency_s * 1e3 for r in steady if not r.from_cache]
+        hit_lat = [r.latency_s * 1e3 for r in steady if r.from_cache]
+
+        # ---- the eager twin and the padded layout, the same trace
+        twins = {}
+        for name, twin in (("eager", EagerService(
+                models, cfg, svc_cfg, seed=seed, device=dev)),
+                ("padded", mk(bucketed=False))):
+            got = serve(twin, trace[:B]) + serve(twin, trace[B:])
+            twins[name] = (twin, all(same(a, b)
+                                     for a, b in zip(served, got)))
+        mse = None
+        if y is not None:
+            idx = [i for r, i in zip(served, ids) if not r.from_cache]
+            yh = np.array([r.yhat for r in served if not r.from_cache])
+            mse = float(np.mean((yh - y[idx]) ** 2))
+
+        # ---- sparse mode: one more capture; back to dense: none
+        svc.set_sampler_mode("sparse")
+        sp_docs, sp_ids = fresh(4 * B)
+        sp = serve(svc, sp_docs)
+        captures_sparse = svc.stats()["traces"]
+        sparse_finite = all(np.isfinite(r.yhat) and r.status == "ok"
+                            for r in sp)
+        sparse_mse = None
+        if y is not None:
+            sparse_mse = float(np.mean((np.array([r.yhat for r in sp])
+                                        - y[sp_ids]) ** 2))
+        svc.set_sampler_mode("dense")
+        back_docs, _ = fresh(B)
+        back = serve(svc, back_docs)
+        captures_back = svc.stats()["traces"]
+
+        # ---- drop and revive mid-stream, each pass at the same draws
+        dr = mk(cache_results=False)
+        docs_d = list({d.tobytes(): d for d in trace}.values())[:2 * B]
+        passes = []
+        for action in (None, "drop", "revive"):
+            if action == "drop":
+                dr.drop_chain(1)
+            elif action == "revive":
+                dr.revive_chain(1)
+            dr._batches = 0
+            passes.append(serve(dr, docs_d))
+        surv = [c for c in range(M) if c != 1]
+        mse_host = models.train_mse.cpu()
+        drop_exact = all(
+            np.array_equal(b.yhat_chains, a.yhat_chains)
+            and b.yhat == float(_combine_yhat(
+                svc_cfg.combine,
+                torch.from_numpy(a.yhat_chains[surv].copy())[:, None],
+                torch.ones(M - 1), mse_host[surv])[0])
+            for a, b in zip(passes[0], passes[1]))
+        revive_exact = all(same(a, c) for a, c in zip(passes[0], passes[2]))
+        captures_dr = dr.stats()["traces"]
+
+        # ---- hot reload from the port's checkpoint, then a torn one
+        caps = svc.stats()["traces"]
+        with tempfile.TemporaryDirectory() as good, \
+                tempfile.TemporaryDirectory() as torn_dir:
+            save_checkpoint(good, 5, models_b)
+            rep = svc.reload_from_checkpoint(good)
+            b0 = svc._batches
+            rel = serve(svc, docs_d[:B])
+            ref_svc = mk(models_b)
+            ref_svc._batches = b0
+            reload_equal = all(same(a, b) and not a.from_cache for a, b in
+                               zip(rel, serve(ref_svc, docs_d[:B])))
+            save_checkpoint(torn_dir, 3, models_b)
+            truncate_chain_file(torn_dir, 3, 1)
+            torn = svc.reload_from_checkpoint(torn_dir)
+            again = serve(svc, docs_d[:4])
+        torn_keeps = (not torn["ok"] and torn["epoch"] == rep["epoch"]
+                      and all(a.from_cache and a.yhat == b.yhat
+                              for a, b in zip(again, rel)))
+        reload_ok = (rep["ok"] and rep["epoch"] == 1
+                     and svc.stats()["traces"] == caps and reload_equal)
+
+        # ---- NaN η after load: quarantined at dispatch, exact
+        q, clean = mk(cache_results=False), mk(cache_results=False)
+        q.models = poison_model_table(models, 3, "nan_eta")
+        clean.drop_chain(3)
+        quarantine_exact = all(
+            a.yhat == b.yhat and np.isfinite(a.yhat)
+            for a, b in zip(serve(q, docs_d), serve(clean, docs_d)))
+        quarantines = q.stats()["dispatch_quarantines"]
+
+        # ---- the launches of everything served above
+        torch.cuda.synchronize()
+        launches, sparse_launches, variants = read_counts()
+        services = [svc, twins["padded"][0], dr, ref_svc, q, clean]
+        g1, g4 = graph_launches(services)
+        b1_launches = launches["B1"] + g1
+        b4_launches = sparse_launches["B1"] + g4
+
+        # ---- one flush's dispatch: replay, replay of a graph captured
+        # with the rungs in turn, eager (the same micro-batch and draws)
+        svc._pending.extend((i, d, 0.0, float("inf"))
+                            for i, d in enumerate(docs_d[:B]))
+        placed, _ = svc._pack()
+        svc._pending.clear()
+        bc, _ = svc._build_schedule(placed)
+        plan = build_plan(bc, svc.cfg)
+        fn = svc._dispatch_fn((plan.cache_key(), dev))
+        z0, seeds = svc._batch_draws(0)
+        replay = lambda: fn(z0, seeds, svc.models, plan)
+        eager = lambda: eager_dispatch(z0, seeds, svc.models, plan)
+        streams_used = plan_mod._streams_for(
+            svc.cfg.n_pred_burnin + svc.cfg.n_pred_samples,
+            len(bc.buckets), dev)
+        orig = plan_mod._streams_for
+        plan_mod._streams_for = lambda *a: False
+        try:
+            in_turn = _GraphDispatch(z0, seeds, svc.models, plan)
+        finally:
+            plan_mod._streams_for = orig
+        want = [t.clone() for t in replay()]
+        got = in_turn(z0, seeds, svc.models, plan)
+        in_turn_equal = all(torch.equal(a, b) for a, b in zip(want, got))
+        eager_equal = all(torch.equal(a, b) for a, b in zip(want, eager()))
+        replay_ms = median_ms(replay)
+        in_turn_ms = median_ms(lambda: in_turn(z0, seeds, svc.models,
+                                               plan))
+        eager_ms = median_ms(eager)
+        flush_p50 = float(np.median(flush_ms))
+        steady_caps = svc.stats()["traces"]
+
+        row = {"phase": "slda_serving", "row": label, "card": smi,
+               "M": M, "T": cfg.n_topics, "W": cfg.vocab_size,
+               "max_doc_len": svc_cfg.max_doc_len, "batch_docs": B,
+               "combine": svc_cfg.combine,
+               "width_ladder": list(svc_cfg.width_ladder),
+               "slot_quota": list(svc_cfg.slot_quota),
+               "requests": len(trace), "all_ok": all_ok,
+               "cache_hits": st0["result_cache_hits"],
+               "dispatches": st0["dispatches"],
+               "dummy_slot_frac": st0["dummy_slot_frac"],
+               "captures_after_first_flush": captures_warm,
+               "captures_after_trace": st0["traces"],
+               "captures_sparse": captures_sparse,
+               "captures_back_to_dense": captures_back,
+               "eager_equal": twins["eager"][1],
+               "padded_equal": twins["padded"][1],
+               "test_mse": mse, "sparse_test_mse": sparse_mse,
+               "var_y_test": var_y, "sparse_finite": sparse_finite,
+               "drop_exact": drop_exact, "revive_exact": revive_exact,
+               "drop_revive_captures": captures_dr,
+               "reload": {k: rep[k] for k in ("ok", "epoch", "ckpt_step")},
+               "reload_equal": reload_equal,
+               "torn_rejected": {k: torn[k] for k in ("ok", "epoch",
+                                                      "reason")},
+               "torn_old_epoch_serves": torn_keeps,
+               "dispatch_quarantines": quarantines,
+               "quarantine_exact": quarantine_exact,
+               "graph_streams": streams_used,
+               "replay_ms": replay_ms, "replay_in_turn_ms": in_turn_ms,
+               "eager_ms": eager_ms,
+               "replay_in_turn_equal": in_turn_equal,
+               "replay_eager_equal": eager_equal,
+               "flush_wall_ms_p50": flush_p50,
+               "host_ms_per_flush": flush_p50 - replay_ms,
+               "fresh_latency_ms_p50": float(np.percentile(fresh_lat, 50)),
+               "fresh_latency_ms_p99": float(np.percentile(fresh_lat, 99)),
+               "cache_hit_latency_ms_p50": (
+                   float(np.percentile(hit_lat, 50)) if hit_lat else None),
+               "docs_per_s": len(steady) / wall_s,
+               "fresh_docs_per_s": len(fresh_lat) / wall_s,
+               "launches": {"B1": b1_launches, "B4": b4_launches},
+               "b1_variant": b1_variant,
+               "b1_variant_launches": variants["B1"],
+               "seconds": time.perf_counter() - t_row}
+        emit(row)
+        check(all_ok, f"{where}: a request was not served ok")
+        check(captures_warm == 1 and st0["traces"] == 1,
+              f"{where}: captures {captures_warm} after the first flush, "
+              f"{st0['traces']} after the trace")
+        check(twins["eager"][1] and eager_equal,
+              f"{where}: the replay differs from eager dispatch")
+        check(twins["padded"][1], f"{where}: the padded layout differs")
+        if mse is not None:
+            check(mse < SERVE_MSE_FRAC * var_y
+                  and sparse_mse < SERVE_MSE_FRAC * var_y,
+                  f"{where}: MSE {mse}, sparse {sparse_mse} against "
+                  f"var(y_test) {var_y}")
+        check(captures_sparse == 2 and captures_back == 2 and sparse_finite
+              and steady_caps == 2,
+              f"{where}: sampler mode captures {captures_sparse}, "
+              f"{captures_back}, finite {sparse_finite}")
+        check(drop_exact and revive_exact and captures_dr == 1,
+              f"{where}: drop/revive not exact or captured anew")
+        check(reload_ok, f"{where}: the reload {rep}, equal {reload_equal}")
+        check(torn_keeps, f"{where}: the torn checkpoint {torn}")
+        check(quarantines == 1 and quarantine_exact,
+              f"{where}: quarantine at dispatch {quarantines}, exact "
+              f"{quarantine_exact}")
+        check(in_turn_equal, f"{where}: the in-turn graph differs")
+        check(b1_launches > 0 and b4_launches > 0
+              and variants["B1"][b1_variant] == launches["B1"],
+              f"{where}: launches B1 {b1_launches}, B4 {b4_launches}, "
+              f"by variant {variants['B1']}")
+        out[label] = {"B1": b1_launches, "B4": b4_launches}
     return out
 
 
@@ -2470,6 +2909,12 @@ def main() -> int:
         (("spl1", cfg), ("spl8", fused), ("spl8_sparse", sparse_fused)),
         zero_counts, read_counts, main_variant)
 
+    # ---- slda_serving: the prediction service at the slice's full width
+    # and at the reference's own serving configuration
+    serving = serving_phase(args.seed, dev, smi,
+                            serving_rows(args.seed, dev, train, test),
+                            zero_counts, read_counts)
+
     # ---- where the time goes: one simple-average run under the profiler
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2602,7 +3047,9 @@ def main() -> int:
         **({"variant_launches": variants_of[k]} if k in variants_of
            else {}),
         **({"supervised_launches": supervised_of[k]} if k in supervised_of
-           else {})}
+           else {}),
+        **({"serving_launches": sum(row[k] for row in serving.values())}
+           if k in ("B1", "B4") else {})}
         for k, (name, src, rep) in sources.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

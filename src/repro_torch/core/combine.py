@@ -14,7 +14,12 @@ All rules accept a per-chain `alive` mask: a dead chain is dropped and
 the weights renormalize over survivors.  Its predictions and weights are
 zeroed with `where` BEFORE any reduction, so a NaN-poisoned chain cannot
 contaminate the combine.  An all-dead mask falls back to the unmasked
-combine with a RuntimeWarning.
+combine with a RuntimeWarning.  The sums over chains run chain by chain,
+left to right, the same for every column: a document's combined ŷ has
+the same bits whether it is combined alone ([M, 1]) or in a batch
+([M, D]), which the prediction service's re-derivation relies on, and a
+chain of weight 0 adds exact zeros, so that dropping it gives the
+survivors' combine bit for bit.
 """
 from __future__ import annotations
 
@@ -45,10 +50,20 @@ def _alive(yhat: torch.Tensor, alive):
     return a, torch.where(a[:, None] > 0, yhat, torch.zeros_like(yhat))
 
 
+def _chain_sum(x: torch.Tensor) -> torch.Tensor:
+    """Σ over the leading chain dim, chain 0 first: column-independent
+    (a matmul or a reduction may order a column's sum by the batch's
+    width)."""
+    out = x[0]
+    for row in x[1:]:
+        out = out + row
+    return out
+
+
 def simple_average(yhat: torch.Tensor, alive=None) -> torch.Tensor:
     """yhat: [M, D_test] per-chain predictions → [D_test]."""
     a, safe = _alive(yhat, alive)
-    return (a[:, None] * safe).sum(0) / a.sum().clamp(min=1.0)
+    return _chain_sum(a[:, None] * safe) / _chain_sum(a).clamp(min=1.0)
 
 
 def weighted_average(yhat: torch.Tensor, train_mse=None, train_acc=None,
@@ -62,8 +77,8 @@ def weighted_average(yhat: torch.Tensor, train_mse=None, train_acc=None,
     raw = 1.0 / (train_mse + _EPS) if train_mse is not None else train_acc
     w = torch.where((a > 0) & torch.isfinite(raw), raw,
                     torch.zeros_like(raw))
-    w = w / w.sum().clamp(min=_EPS)
-    return w @ safe
+    w = w / _chain_sum(w).clamp(min=_EPS)
+    return _chain_sum(w[:, None] * safe)
 
 
 def median(yhat: torch.Tensor, alive=None) -> torch.Tensor:

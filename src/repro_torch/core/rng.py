@@ -20,8 +20,10 @@ INT32_MAX = 2 ** 31 - 1
 
 # the streams a run draws from (one generator per chain in each); a
 # supervised run's EM rounds and its fresh re-inits draw from streams of
-# their own (`core.supervisor`)
-TRAIN, PREDICT, PREDICT_TRAIN, SUPERVISED_ROUND, FRESH_INIT = 0, 1, 2, 3, 4
+# their own (`core.supervisor`), and so do the prediction service's
+# micro-batches (`serve_draws`)
+TRAIN, PREDICT, PREDICT_TRAIN, SUPERVISED_ROUND, FRESH_INIT, SERVE = \
+    0, 1, 2, 3, 4, 5
 
 
 def generator(device, *words: int) -> torch.Generator:
@@ -87,3 +89,14 @@ def predict_draws(gens, n_docs: int, max_len: int, n_topics: int):
     seeds = _stack(gens, lambda g: torch.randint(
         0, INT32_MAX, (n_docs,), generator=g, device=dev, dtype=torch.int32))
     return z0, seeds
+
+
+def serve_draws(seed: int, batch: int, m: int, n_docs: int, max_len: int,
+                n_topics: int, device):
+    """(z0 int32 [M, D, N], seeds int32 [M, D]) of the prediction
+    service's micro-batch `batch`, from generators seeded (seed, SERVE,
+    chain, batch): stateless in `batch`, so that two services at the same
+    batch index draw the same numbers, as the reference's
+    `fold_in(key, batch)` does."""
+    return predict_draws([generator(device, seed, SERVE, c, batch)
+                          for c in range(m)], n_docs, max_len, n_topics)

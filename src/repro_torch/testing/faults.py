@@ -27,18 +27,24 @@ How each fault behaves mirrors the failure it stands for:
 
 NaN and count faults set no bits: the health probes must find them.
 Kill and straggle set their bits, because a dead or late worker has no
-signature in the state.  The serving and elastic helpers of the
-reference (`inject_dispatch_delay`, `burst_trace`, `replay_open_loop`,
-`ElasticEvent`, `random_elastic_events`) come with the services they
-drive.
+signature in the state.
+
+The serving half drives `serving.SLDAPredictionService`: model tables
+poisoned after training (`poison_model_table`), a straggling dispatch
+(`inject_dispatch_delay`), and deterministic open-loop overload
+(`burst_trace` replayed by `replay_open_loop` on a `VirtualClock`).  The
+reference's elastic helpers (`ElasticEvent`, `random_elastic_events`)
+come with the elastic runtime they drive.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
 import os
+import time
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.supervisor import F_KILLED, F_STRAGGLER
@@ -197,3 +203,82 @@ def poison_model_table(models, chain: int, kind: str = "nan_phi"):
             "kind must be one of ('nan_phi', 'nan_eta', 'bad_rowsum', "
             f"'nan_mse'), got {kind!r}")
     return dataclasses.replace(models, phi=phi, eta=eta, train_mse=mse)
+
+
+def inject_dispatch_delay(service, delay_s: float):
+    """Make every dispatch of `service` take `delay_s` more seconds (a
+    straggling card).  It wraps the dispatch-cache lookup
+    (`_dispatch_fn`), not the cached callables, so the captures and the
+    no-recapture property are untouched; the dispatch is waited for (the
+    card synchronized) before the delay, which advances a `VirtualClock`
+    without sleeping.  Returns an undo callable."""
+    orig = service._dispatch_fn
+    clock = service._clock
+
+    def delayed(plan_key):
+        fn = orig(plan_key)
+
+        def run(*args):
+            out = fn(*args)
+            if service.device.type == "cuda":
+                torch.cuda.synchronize(service.device)
+            if isinstance(clock, VirtualClock):
+                clock.advance(delay_s)
+            else:
+                time.sleep(delay_s)
+            return out
+
+        return run
+
+    service._dispatch_fn = delayed
+
+    def undo():
+        service._dispatch_fn = orig
+
+    return undo
+
+
+def burst_trace(seed: int, vocab: int, max_len: int, *,
+                base_rate: float, burst_rate: float, n_steady: int,
+                n_burst: int, n_tail: int, len_lam: float = 12.0):
+    """A deterministic open-loop arrival trace: steady Poisson traffic at
+    `base_rate` requests/s, a burst at `burst_rate`, then a steady tail.
+    Returns [(arrival_time_s, int32 tokens)] in time order; the numpy
+    draws are the reference's, so a seed gives its trace bit for bit."""
+    rng = np.random.default_rng(seed)
+    t, out = 0.0, []
+    for n, rate in ((n_steady, base_rate), (n_burst, burst_rate),
+                    (n_tail, base_rate)):
+        for _ in range(n):
+            t += rng.exponential(1.0 / rate)
+            L = int(np.clip(rng.poisson(len_lam), 1, max_len))
+            out.append((t, rng.integers(0, vocab, L).astype(np.int32)))
+    return out
+
+
+def replay_open_loop(service, trace, clock: VirtualClock):
+    """Replay an arrival `trace` through `service` open loop on a
+    `VirtualClock` (the service built with `auto_flush=False` and
+    `clock=clock`): the dispatcher flushes full micro-batches whenever it
+    is free, and arrivals keep landing while a dispatch is in flight,
+    which fills the bounded queue and expires deadlines in a burst.
+    Returns {req_id: arrival_time_s}."""
+    if service.svc.auto_flush:
+        raise ValueError("replay_open_loop needs auto_flush=False — "
+                         "auto-flush serves synchronously at submit "
+                         "time and no queueing can ever build up")
+    batch = service.svc.batch_docs
+    free_at = 0.0
+    arrivals = {}
+    for t_arr, doc in trace:
+        # the dispatcher catches up on what it could run before t_arr
+        while free_at <= t_arr and len(service._pending) >= batch:
+            clock.set(free_at)
+            service.flush()
+            free_at = clock.now()
+        clock.set(t_arr)
+        rid = service.submit(doc)
+        arrivals[rid] = t_arr
+    clock.set(max(free_at, clock.now()))
+    service.drain()
+    return arrivals
