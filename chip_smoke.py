@@ -141,6 +141,32 @@ Phases, one JSON line each:
                  reported: a flush's replay, in-turn replay and eager ms
                  by CUDA events, host ms a flush, latencies, docs/s,
                  dummy share, layout, B1 and B4 launches
+  parallel       the multi-process runner (`repro_torch.launch.
+                 slda_parallel`) at the slice's full scale, spl 1 and 8
+                 dense and 8 sparse, M = 4 (`parallel_phase`): (a) world
+                 size 1 under NCCL in this process, 4 chains a rank; (b)
+                 4 ranks of one chain sharing the card under gloo,
+                 spawned, `file://` rendezvous; gates: every rank's
+                 gathered predictions bit-equal to one process's chain
+                 batch with the same seed and ŷ to its combine (Simple,
+                 Weighted), no collective counted in training and one
+                 gather after it, no NCCL kernel in a profile of (a)'s
+                 training, a NaN chain in one rank auto-quarantined and
+                 ŷ the survivors' combine bit for bit, 8 length buckets
+                 at spl 1 bit-equal to padded, each rank's B1–B3
+                 launches (counted in the rank); reported: each rank's
+                 train / predict / gather ms and start-up seconds
+  elastic        the elastic runner (`repro_torch.launch.elastic`) at the
+                 slice, spl 1 dense and 8 sparse, rounds of 5 EM
+                 iterations, a simulated pool of 2 devices, asynchronous
+                 checkpoints (`elastic_phase`): undisturbed runs equal
+                 over pools of 1, 2 and 4; a device loss restored and
+                 caught up bit for bit; without checkpoints quarantined
+                 with the survivors lane-equal; preempt then resume
+                 equal; a straggler flagged then evicted; asynchronous
+                 and synchronous checkpoints the same bits; one round
+                 plan a run; `elastic_run_average`'s MSE gate; reported:
+                 each wall round's ms and its checkpoint's, launches
   profile       one Simple Average run under torch.profiler, at each of
                  the two settings and sparse at 8, then over 8 length
                  buckets at the slice at spl 1 and 8 and Figure 7 at 8
@@ -1707,6 +1733,451 @@ def serving_phase(seed, dev, smi, rows, zero_counts, read_counts):
     return out
 
 
+# EM iterations an elastic round (the `elastic` phase): R = 30 / 5 = 6
+ELASTIC_ROUND = 5
+# seconds the spawned ranks of the `parallel` phase may take in all
+RANKS_TIMEOUT_S = 300.0
+
+
+class PhaseProfile:
+    """A `timer=` for `parallel_slda`: torch.profiler over the "train"
+    and the "gather" phases (CUDA activity), the device kernels' names of
+    each kept in `kernels[phase]`."""
+
+    def __init__(self):
+        self.kernels = {}
+
+    def __call__(self, phase):
+        import contextlib
+
+        import torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        if phase not in ("train", "gather"):
+            return contextlib.nullcontext()
+
+        @contextlib.contextmanager
+        def traced():
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                yield
+                torch.cuda.synchronize()
+            self.kernels[phase] = sorted(
+                {e.key for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA})
+        return traced()
+
+
+def batched_forms(dev, seed):
+    """The batched forms that ROADMAP C7 replaced (the η solve's Gram
+    product, its right-hand side and solve, `zb @ η`, the train MSE's
+    mean), each on four chains at once against the same operation chain
+    by chain, on random inputs at the slice's shapes (a shard's 750
+    documents, the 1,216 test documents; T = 16 and 512): the largest
+    difference of each, a report (0.0 where the card's batched call does
+    not depend on the batch)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for d, t in ((750, 16), (1216, 16), (750, 512)):
+        z = torch.rand((4, d, t), generator=g, device=dev)
+        z = z / z.sum(-1, keepdim=True)
+        y = torch.randn((4, d), generator=g, device=dev)
+        eta = torch.randn((4, t), generator=g, device=dev)
+
+        def forms(z, y, eta):
+            zt = z.transpose(-1, -2)
+            gram = zt @ z
+            rhs = (zt @ y[..., None])[..., 0]
+            sol = torch.linalg.solve_ex(
+                gram / 0.25 + torch.eye(t, device=dev) / 10.0,
+                rhs / 0.25).result
+            yhat = (z @ eta[..., None])[..., 0]
+            return {"gram": gram, "rhs": rhs, "eta": sol, "zb_eta": yhat,
+                    "mse": ((yhat - y) ** 2).mean(-1)}
+        whole = forms(z, y, eta)
+        alone = [forms(z[c:c + 1], y[c:c + 1], eta[c:c + 1])
+                 for c in range(4)]
+        out[f"D{d}_T{t}"] = {
+            k: float((v - torch.cat([a[k] for a in alone])).abs().max())
+            for k, v in whole.items()}
+    return out
+
+
+def parallel_phase(seed, dev, smi, train, test, runs, zero_counts,
+                   read_counts, main_variant):
+    """The multi-process runner (`repro_torch.launch.slda_parallel`) at the
+    slice's full scale for each (label, config) of `runs` (the first spl 1
+    dense), M = 4: (a) world size 1 under NCCL in this process, 4 chains
+    a rank; (b) 4 spawned ranks of 1 chain sharing the card under gloo.
+    Gates: every rank's gathered [M, D_test] predictions bit-equal to one
+    process's chain batch with the same seed (`train_chains` on the 4
+    shards, `predict_chains`) and ŷ to its combine, Simple and Weighted;
+    no collective counted in training, one gather after it; in (a), no
+    NCCL kernel in a profile of the training phase; a chain poisoned to
+    NaN in one rank quarantined, ŷ the survivors' combine bit for bit; 8
+    length buckets at spl 1 bit-equal to padded; every rank's B1–B3
+    launches (the children count their own).  Reported: each rank's
+    train / predict / gather ms (CUDA events; the gather also on the
+    host's clock) and its start-up seconds; apart, (a)'s first gather
+    (NCCL builds its communicator) and each (b) rank's warm-up run; the
+    batched forms ROADMAP C7 replaced against chain by chain
+    (`batched_forms`).  Returns the phase's launches, {"B1", "B2", "B3",
+    "B4"}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import combine, predict_chains, train_chains
+    from repro_torch.core.parallel import _shards
+    from repro_torch.launch.slda_parallel import (gather_rows, init_group,
+                                                  parallel_slda, rank_runs,
+                                                  run_ranks)
+    from repro_torch.testing import poison_model_table
+
+    M = 4
+    total = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+    spl1 = runs[0][1]
+    bucketed = dataclasses.replace(spl1, length_buckets=8)
+    dead = torch.tensor([1.0, 1.0, 0.0, 1.0], device=dev)  # chain 2 poisoned
+
+    # one process, all four chains: what every rank must reproduce
+    single = {}
+    for label, cfg in runs:
+        _, models = train_chains(seed, _shards(train, M, cfg, dev), cfg,
+                                 device=dev)
+        y = predict_chains(seed, models, test, cfg, device=dev)
+        single[label] = (y, {
+            "simple": combine.simple_average(y),
+            "weighted": combine.weighted_average(
+                y, train_mse=models.train_mse)})
+    y1 = single[runs[0][0]][0]
+    survivors = combine.simple_average(y1, alive=dead)
+
+    def want_launches(cfg, chains):
+        spl = cfg.sweeps_per_launch
+        n = cfg.n_iters if spl == 1 else -(-cfg.n_iters // spl)
+        return {"B1": 1, "B2": n if spl == 1 else 0,
+                "B3": 0 if spl == 1 else n}
+
+    def gates(where, label, cfg, rule, yhat, rep, launches):
+        y, want = single[label]
+        coll = rep["collectives"]
+        after = coll["after_train"]
+        check(np.array_equal(np.asarray(rep["yhat_chains"]), y.cpu().numpy()),
+              f"{where}: gathered predictions differ from the chain batch")
+        check(np.array_equal(np.asarray(yhat), want[rule].cpu().numpy()),
+              f"{where}: ŷ differs from the chain batch's combine")
+        check(coll["train"]["count"] == 0,
+              f"{where}: collectives in training {coll['train']}")
+        check(after["count"] == 1 and set(after["calls_by_kind"]) <= {
+            "all_gather_single", "all_gather_into_tensor"},
+              f"{where}: collectives after training {after}")
+        check(launches == want_launches(cfg, 1),
+              f"{where}: launches {launches}")
+
+    def host(v):
+        return v.cpu().numpy() if torch.is_tensor(v) else v
+
+    def coll_dict(rep):
+        return {k: (v if isinstance(v, dict) else v.as_dict())
+                for k, v in rep["collectives"].items()}
+
+    t_phase = time.perf_counter()
+    # ---- (a) world size 1 under NCCL, in this process
+    rows_a = []
+    with tempfile.TemporaryDirectory(prefix="rendezvous_") as tmp:
+        t0 = time.perf_counter()
+        init_group("nccl", 0, 1, f"file://{tmp}/store", RANKS_TIMEOUT_S)
+        group_s = time.perf_counter() - t0
+        try:
+            # NCCL builds its communicator at the first collective: one
+            # gather of one value first, timed apart
+            t0 = time.perf_counter()
+            gather_rows(torch.zeros((1, 1), device=dev))
+            torch.cuda.synchronize()
+            communicator_ms = (time.perf_counter() - t0) * 1e3
+            for label, cfg in runs:
+                for rule in ("simple", "weighted"):
+                    zero_counts()
+                    yhat, rep = parallel_slda(
+                        seed, train, test, cfg, rule=rule,
+                        chains_per_device=M, device=dev, return_report=True)
+                    torch.cuda.synchronize()
+                    launches, sparse_launches, variants = read_counts()
+                    is_sparse = cfg.sampler_mode == "sparse"
+                    check(all(variants[k][v] == launches[k] for k, v
+                              in main_variant(cfg).items()),
+                          f"parallel (a) {label}: variants {variants}")
+                    check(sum(sparse_launches.values())
+                          == (sum(launches.values()) if is_sparse else 0),
+                          f"parallel (a) {label}: sparse launches "
+                          f"{sparse_launches}")
+                    gates(f"parallel (a) {label} {rule}", label, cfg, rule,
+                          host(yhat), {**rep, "yhat_chains":
+                                       host(rep["yhat_chains"]),
+                                       "collectives": coll_dict(rep)},
+                          launches)
+                    for k in ("B1", "B2", "B3"):
+                        total[k] += launches[k]
+                    total["B4"] += sum(sparse_launches.values())
+                    rows_a.append({"config": label, "rule": rule,
+                                   "ms": rep["ms"], "launches": launches,
+                                   "sparse_launches": sparse_launches,
+                                   "collectives": coll_dict(rep)})
+            # the training phase under the profiler: no NCCL kernel
+            prof = PhaseProfile()
+            parallel_slda(seed, train, test, spl1, chains_per_device=M,
+                          device=dev, timer=prof)
+            nccl_train = [k for k in prof.kernels["train"]
+                          if "nccl" in k.lower()]
+            nccl_gather = [k for k in prof.kernels["gather"]
+                           if "nccl" in k.lower()]
+            # a NaN chain, auto-quarantined; 8 length buckets at spl 1
+            zero_counts()
+            y_bad, rep_bad = parallel_slda(
+                seed, train, test, spl1, chains_per_device=M, device=dev,
+                return_report=True, fault_hook=lambda models, ids:
+                poison_model_table(models, ids.index(2), "nan_eta"))
+            y_bkt = parallel_slda(seed, train, test, bucketed,
+                                  chains_per_device=M, device=dev)
+            torch.cuda.synchronize()
+            launches, sparse_launches, _ = read_counts()
+            for k in ("B1", "B2", "B3"):
+                total[k] += launches[k]
+        finally:
+            dist.destroy_process_group()
+    quarantine_a = (rep_bad["n_quarantined"] == 1
+                    and torch.equal(rep_bad["alive"].to(dev), dead)
+                    and torch.equal(y_bad, survivors))
+    buckets_a = torch.equal(y_bkt, single[runs[0][0]][1]["simple"])
+    emit({"phase": "parallel", "form": "world1_nccl", "card": smi,
+          "backend": "nccl", "chains_per_device": M,
+          "group_init_s": group_s, "first_gather_ms": communicator_ms,
+          "batched_forms_max_abs_diff": batched_forms(dev, seed),
+          "runs": rows_a,
+          "nccl_kernels_in_train": nccl_train,
+          "nccl_kernels_in_gather": nccl_gather,
+          "train_kernels": len(prof.kernels["train"]),
+          "quarantine_exact": quarantine_a,
+          "buckets_equal_padded": buckets_a,
+          "extra_launches": launches})
+    check(prof.kernels["train"] and not nccl_train,
+          f"parallel (a): NCCL kernels in training {nccl_train}")
+    check(quarantine_a, "parallel (a): the NaN chain's quarantine is not "
+          f"exact ({rep_bad['n_quarantined']} quarantined)")
+    check(buckets_a, "parallel (a): 8 length buckets differ from padded")
+
+    # ---- (b) 4 ranks of one chain under gloo, sharing the card; each
+    # rank's first run (its CUDA libraries' first calls) is a warm-up
+    runs_b, names = [dict(cfg=spl1, chains_per_device=1)], []
+    for label, cfg in runs:
+        for rule in ("simple", "weighted"):
+            runs_b.append(dict(cfg=cfg, rule=rule, chains_per_device=1))
+            names.append((label, rule))
+    runs_b.append(dict(cfg=spl1, chains_per_device=1, poison=(2, "nan_eta")))
+    runs_b.append(dict(cfg=bucketed, chains_per_device=1))
+    t0 = time.perf_counter()
+    res = run_ranks(4, rank_runs, dict(seed=seed, train=train.to("cpu"),
+                                       test=test.to("cpu"), runs=runs_b,
+                                       device=str(dev)),
+                    timeout_s=RANKS_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    rows_b = []
+    for rank, (results, startup_s) in enumerate(res):
+        warm, results = results[0], results[1:]
+        for k, v in warm["report"]["launches"].items():
+            total[k] += v[0]
+        per_run = []
+        for (label, rule), r in zip(names, results):
+            cfg = dict(runs)[label]
+            rep = r["report"]
+            launches = {k: v[0] for k, v in rep["launches"].items()}
+            gates(f"parallel (b) rank {rank} {label} {rule}", label, cfg,
+                  rule, r["yhat"], rep, launches)
+            check(rep["backend"] == "gloo" and rep["chain_ids"] == [rank],
+                  f"parallel (b) rank {rank}: {rep['backend']}, "
+                  f"{rep['chain_ids']}")
+            for k in ("B1", "B2", "B3"):
+                total[k] += launches[k]
+            total["B4"] += sum(v[1] for v in rep["launches"].values())
+            per_run.append({"config": label, "rule": rule, "ms": rep["ms"],
+                            "launches": rep["launches"]})
+        bad, bkt = results[-2], results[-1]
+        for r in (bad, bkt):
+            for k, v in r["report"]["launches"].items():
+                total[k] += v[0]
+        quarantine_b = (bad["report"]["n_quarantined"] == 1
+                        and np.array_equal(bad["yhat"],
+                                           survivors.cpu().numpy()))
+        buckets_b = np.array_equal(bkt["yhat"], results[0]["yhat"])
+        rows_b.append({"rank": rank, "startup_s": startup_s,
+                       "warm_up_ms": warm["report"]["ms"],
+                       "runs": per_run, "quarantine_exact": quarantine_b,
+                       "buckets_equal_padded": buckets_b})
+        check(quarantine_b, f"parallel (b) rank {rank}: the NaN chain's "
+              "quarantine is not exact")
+        check(buckets_b, f"parallel (b) rank {rank}: 8 length buckets "
+              "differ from padded")
+    emit({"phase": "parallel", "form": "world4_gloo_one_card", "card": smi,
+          "backend": "gloo", "chains_per_device": 1, "ranks_s": ranks_s,
+          "ranks": rows_b,
+          "phase_s": time.perf_counter() - t_phase})
+    return total
+
+
+def elastic_phase(seed, dev, smi, train, test, runs, zero_counts,
+                  read_counts, main_variant):
+    """The elastic runner (`repro_torch.launch.elastic`) at the slice's
+    full scale for each (label, config) of `runs`: M = 4, rounds of
+    ELASTIC_ROUND EM iterations (R = 6), a simulated pool of 2 devices,
+    asynchronous checkpoints under a temporary directory.  Gates, the
+    reference's elastic tests on the card: an undisturbed run equals
+    itself and runs over pools of 1 and 4; a device loss at wall round 3
+    with checkpoints every 2 rounds restores from step 2 and catches up
+    to the undisturbed state bit for bit; without a checkpoint directory
+    its chains are quarantined and the survivors lane-equal; a preemption
+    at round 2 then `resume` equals the undisturbed run; a straggler is
+    flagged, then evicted; asynchronous and synchronous checkpoints give
+    the same bits; no run builds more than its one round plan;
+    `elastic_run_average`'s MSE under 0.6·var(y_test); every B1–B3
+    launch on the main path's variant.  Reported: each wall round's ms
+    and its checkpoint's (asynchronous and synchronous), the launches.
+    Returns the phase's launches, {"B1", "B2", "B3", "B4"}."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import read_manifest
+    from repro_torch.core.parallel import _shards
+    from repro_torch.core.supervisor import F_KILLED, F_STRAGGLER
+    from repro_torch.launch.elastic import (ElasticConfig, ElasticRunner,
+                                            elastic_run_average)
+    from repro_torch.testing import ElasticEvent, VirtualClock
+
+    M = 4
+    var_y = float(test.y.var(unbiased=False))
+    total = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+
+    def same(a, b, idx=None):
+        pick = (lambda x: x) if idx is None else (lambda x: x[idx])
+        return all(torch.equal(pick(getattr(a, f)), pick(getattr(b, f)))
+                   for f in ("z", "ndt", "ntw", "nt", "eta"))
+
+    for label, cfg in runs:
+        t_row = time.perf_counter()
+        el = ElasticConfig(round_iters=ELASTIC_ROUND)
+        R = cfg.n_iters // ELASTIC_ROUND
+        shards = _shards(train, M, cfg, dev)
+        plans = []
+
+        def run(*, devices=2, elastic=el, resume=False, **kw):
+            runner = ElasticRunner(shards, cfg, devices=devices,
+                                   elastic=elastic, **kw)
+            state, _, rep = runner.train(seed, resume=resume)
+            plans.append(rep.round_plans)
+            return state, rep, runner
+
+        zero_counts()
+        with tempfile.TemporaryDirectory(prefix="elastic_") as tmp:
+            s0, r0, _ = run()
+            s_again, _, _ = run()
+            s_pool1, _, _ = run(devices=1)
+            s_pool4, _, _ = run(devices=4)
+            loss = [ElasticEvent("device_loss", at_round=3, device=1)]
+            s_loss, r_loss, _ = run(
+                events=loss, ckpt_dir=f"{tmp}/loss",
+                elastic=ElasticConfig(round_iters=ELASTIC_ROUND,
+                                      ckpt_every=2))
+            s_q, r_q, _ = run(events=loss)
+            _, r_p1, _ = run(events=[ElasticEvent("preempt", at_round=2)],
+                             ckpt_dir=f"{tmp}/preempt")
+            s_p2, r_p2, _ = run(ckpt_dir=f"{tmp}/preempt", resume=True)
+            s_s, r_s, runner_s = run(
+                events=[ElasticEvent("straggle", at_round=1, device=1,
+                                     delay_s=5.0, rounds=3)],
+                clock=VirtualClock(),
+                elastic=ElasticConfig(round_iters=ELASTIC_ROUND,
+                                      deadline_s=2.0, straggle_rounds=2))
+            s_sync, r_sync, _ = run(
+                ckpt_dir=f"{tmp}/sync",
+                elastic=ElasticConfig(round_iters=ELASTIC_ROUND,
+                                      async_ckpt=False))
+            s_async, r_async, _ = run(ckpt_dir=f"{tmp}/async")
+            files_equal = read_manifest(f"{tmp}/sync", R) == \
+                read_manifest(f"{tmp}/async", R)
+            for c in range(M):
+                name = f"step_{R:08d}/chain_{c:03d}.npz"
+                with np.load(f"{tmp}/sync/{name}") as a, \
+                        np.load(f"{tmp}/async/{name}") as b:
+                    files_equal &= sorted(a.files) == sorted(b.files) and \
+                        all(np.array_equal(a[k], b[k]) for k in a.files)
+            yhat, rep_avg = elastic_run_average(
+                seed, train, test, cfg, M, devices=2, elastic=el,
+                events=loss, ckpt_dir=f"{tmp}/average", device=dev)
+        torch.cuda.synchronize()
+        launches, sparse_launches, variants = read_counts()
+        mse = float(((yhat - test.y) ** 2).mean())
+        acts = [e["action"] for h in r_s.history for e in h["events"]]
+        survivors = np.nonzero(r_q.alive)[0]
+        gates = {
+            "deterministic": same(s_again, s0),
+            "pool_1_and_4_equal": same(s_pool1, s0) and same(s_pool4, s0),
+            "loss_caught_up_equal": (r_loss.alive.all()
+                                     and (r_loss.progress == R).all()
+                                     and r_loss.wall_rounds == R + 1
+                                     and same(s_loss, s0)),
+            "loss_quarantine_exact": (
+                list(np.nonzero(~r_q.alive)[0]) == [2, 3]
+                and all(r_q.status[c] & F_KILLED for c in (2, 3))
+                and same(s_q, s0, idx=torch.as_tensor(survivors))),
+            "preempt_resume_equal": (r_p1.preempted
+                                     and r_p2.resume_round
+                                     == r_p1.wall_rounds
+                                     and same(s_p2, s0)),
+            "straggler_flagged_evicted": (
+                [bool(s & F_STRAGGLER) for s in r_s.status]
+                == [False, False, True, True]
+                and runner_s.pool.ids == (0,)
+                and "straggler_evicted" in acts and same(s_s, s0)),
+            "async_sync_equal": same(s_async, s_sync) and same(s_sync, s0)
+            and files_equal,
+            "one_round_plan_a_run": set(plans) == {1},
+            "average_all_alive": bool(rep_avg.alive.all()),
+        }
+        emit({"phase": "elastic", "config": label, "card": smi,
+              "sweeps_per_launch": cfg.sweeps_per_launch,
+              "sampler_mode": cfg.sampler_mode, "chains": M,
+              "round_iters": ELASTIC_ROUND, "rounds": R, "pool": 2,
+              "gates": gates, "test_mse": mse, "var_y_test": var_y,
+              "round_ms_async": [h["round_ms"] for h in r_async.history],
+              "ckpt_ms_async": [h["ckpt_ms"] for h in r_async.history],
+              "round_ms_sync": [h["round_ms"] for h in r_sync.history],
+              "ckpt_ms_sync": [h["ckpt_ms"] for h in r_sync.history],
+              "round_ms_undisturbed": [h["round_ms"] for h in r0.history],
+              "loss_wall_rounds": r_loss.wall_rounds,
+              "restores": [e["action"] for h in r_loss.history
+                           for e in h["events"] if "chain" in e],
+              "round_plans": plans, "launches": launches,
+              "sparse_launches": sparse_launches,
+              "variant_launches": variants,
+              "seconds": time.perf_counter() - t_row})
+        for name, ok in gates.items():
+            check(ok, f"elastic {label}: {name}")
+        check(mse < 0.6 * var_y,
+              f"elastic {label}: MSE {mse} against var(y_test) {var_y}")
+        check(all(variants[k][v] == launches[k] for k, v
+                  in main_variant(cfg).items())
+              and launches["B1"] > 0
+              and launches["B2" if cfg.sweeps_per_launch == 1 else "B3"] > 0,
+              f"elastic {label}: launches {launches}, {variants}")
+        for k in ("B1", "B2", "B3"):
+            total[k] += launches[k]
+        total["B4"] += sum(sparse_launches.values())
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="port smoke test on one card")
     ap.add_argument("--seed", type=int, default=0)
@@ -2915,6 +3386,18 @@ def main() -> int:
                             serving_rows(args.seed, dev, train, test),
                             zero_counts, read_counts)
 
+    # ---- parallel: one process a rank under torch.distributed, world 1
+    # under NCCL and 4 ranks sharing the card under gloo; elastic: the
+    # elastic runner over a simulated pool; each counts its launches
+    parallel = parallel_phase(
+        args.seed, dev, smi, train, test,
+        (("spl1", cfg), ("spl8", fused), ("spl8_sparse", sparse_fused)),
+        zero_counts, read_counts, main_variant)
+    elastic = elastic_phase(
+        args.seed, dev, smi, train, test,
+        (("spl1", cfg), ("spl8_sparse", sparse_fused)),
+        zero_counts, read_counts, main_variant)
+
     # ---- where the time goes: one simple-average run under the profiler
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3049,7 +3532,9 @@ def main() -> int:
         **({"supervised_launches": supervised_of[k]} if k in supervised_of
            else {}),
         **({"serving_launches": sum(row[k] for row in serving.values())}
-           if k in ("B1", "B4") else {})}
+           if k in ("B1", "B4") else {}),
+        **({"parallel_launches": parallel[k], "elastic_launches": elastic[k]}
+           if k in parallel else {})}
         for k, (name, src, rep) in sources.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -41,6 +41,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ops
+from repro_torch.mathutil import chain_matvec, per_chain
 from .regression import solve_eta
 from .types import (BucketedCorpus, GibbsState, SLDAConfig, SLDAModel,
                     apply_count_deltas, bucket_corpus, bucket_signature,
@@ -393,9 +394,12 @@ class ExecutionPlan:
         boundary; original-order rows."""
         from .gibbs import phi_hat
         zb = state.ndt / self._lengths[..., None]
-        yhat = (zb @ state.eta[..., None])[..., 0]
+        yhat = chain_matvec(zb, state.eta)
         y = self._y
-        mse = ((yhat - y) ** 2).mean(-1)
+        # the mean over a chain's documents, chain by chain: the card's
+        # reduction orders its sums by the number of rows (ROADMAP C7);
+        # the accuracy sums 0/1 values, exact in any order
+        mse = per_chain(lambda a, b: ((a - b) ** 2).mean(-1), yhat, y)
         acc = ((yhat > 0.5) == (y > 0.5)).to(torch.float32).mean(-1)
         return SLDAModel(phi=phi_hat(state, self.cfg), eta=state.eta,
                          train_mse=mse, train_acc=acc)
@@ -447,4 +451,4 @@ class ExecutionPlan:
     def predict(self, z0, seeds, models: SLDAModel):
         """Every chain predicts every document → ŷ [M, D] (Eq. 5)."""
         zb = self.predict_zbar(z0, seeds, models)
-        return (zb @ models.eta[..., None])[..., 0]
+        return chain_matvec(zb, models.eta)

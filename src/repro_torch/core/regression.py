@@ -10,7 +10,11 @@ is ridge regression with prior mean μ; the closed form is
 
 T is small (tens), so a dense float32 solve is exact enough and cheap.
 Leading dims of `zbar` [..., D, T] and `y` [..., D] are independent
-chains, solved in one batched call.  The solves check no errors
+chains, solved in groups of a fixed size (`mathutil.per_chain_group`):
+a batched call may order its sums by the batch's size, and a chain's η
+must not depend on how many chains run beside it
+(`launch.slda_parallel` runs blocks of an ensemble's chains in separate
+processes; ROADMAP C7).  The solves check no errors
 (`torch.linalg.solve_ex`): on the card the check is a host read every EM
 boundary, and a singular or non-finite system of one chain would raise
 for every chain; its η comes back non-finite instead, which the
@@ -20,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.mathutil import per_chain_group
+
 from .types import SLDAConfig
 
 
@@ -28,12 +34,19 @@ def _eye(zbar):
     return torch.eye(T, dtype=zbar.dtype, device=zbar.device)
 
 
-def solve_eta(zbar: torch.Tensor, y: torch.Tensor,
-              cfg: SLDAConfig) -> torch.Tensor:
+def _solve_one(zbar, y, cfg):
     zt = zbar.transpose(-1, -2)
     gram = zt @ zbar / cfg.rho + _eye(zbar) / cfg.sigma
     rhs = (zt @ y[..., None])[..., 0] / cfg.rho + cfg.mu / cfg.sigma
     return torch.linalg.solve_ex(gram, rhs).result
+
+
+def solve_eta(zbar: torch.Tensor, y: torch.Tensor,
+              cfg: SLDAConfig) -> torch.Tensor:
+    if zbar.dim() > 2:
+        return per_chain_group(lambda z, yy: _solve_one(z, yy, cfg), zbar,
+                               y)
+    return _solve_one(zbar, y, cfg)
 
 
 def solve_eta_ols(zbar: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -34,9 +34,13 @@ def generator(device, *words: int) -> torch.Generator:
     return g
 
 
-def chain_generators(seed: int, m: int, device, stream: int = TRAIN):
-    """One generator per chain, seeded from (seed, stream, chain)."""
-    return [generator(device, seed, stream, c) for c in range(m)]
+def chain_generators(seed: int, chains, device, stream: int = TRAIN):
+    """One generator per chain, seeded from (seed, stream, chain).
+    `chains` is the number of chains M (chains 0..M-1) or the global ids
+    of the chains to draw for: a process that runs chains 4..7 of an
+    ensemble draws what a run of all of them draws for those four."""
+    ids = range(chains) if isinstance(chains, int) else chains
+    return [generator(device, seed, stream, int(c)) for c in ids]
 
 
 def _stack(gens, draw):

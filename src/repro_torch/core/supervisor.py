@@ -239,8 +239,11 @@ class SupervisorDraws:
       z_init    the initial topics, int32 [M, D, S];
       round     round(r, epoch, n_iters) → the draws of round r's
                 `n_iters` EM iterations, one tensor a boundary as
-                `ExecutionPlan.train_em` takes them; epoch int [M] holds
-                each chain's restarts so far;
+                `ExecutionPlan.train_em` takes them; r is one round for
+                every chain or an int [M] of per-chain rounds (the
+                elastic runner's catch-up, where a restored chain replays
+                its own round while the others advance); epoch int [M]
+                holds each chain's restarts so far;
       fresh     fresh(epoch) → initial topics [M, D, S], of which a chain
                 restarted without a usable checkpoint takes its row."""
 
@@ -252,15 +255,17 @@ class SupervisorDraws:
 def seeded_draws(seed: int, plan: ExecutionPlan) -> SupervisorDraws:
     """Draws from generators on the plan's device: the initial topics from
     (seed, TRAIN, chain), as an unsupervised run draws them; round r of a
-    chain from (seed, SUPERVISED_ROUND, chain, epoch, r); a fresh re-init
-    from (seed, FRESH_INIT, chain, epoch).  A chain's draws depend on
-    nothing of the other chains."""
+    chain from (seed, SUPERVISED_ROUND, chain, epoch, r), r that chain's
+    own round when `round` is handed one a chain; a fresh re-init from
+    (seed, FRESH_INIT, chain, epoch).  A chain's draws depend on nothing
+    of the other chains."""
     bc, cfg, dev = plan.corpus, plan.cfg, plan.device
     m, d, s = plan.n_chains, bc.n_docs, bc.ctr_stride
 
     def round_draws(r, epoch, n_iters):
+        r = np.broadcast_to(np.asarray(r), (m,))
         gens = [rng.generator(dev, seed, rng.SUPERVISED_ROUND, c,
-                              int(epoch[c]), r) for c in range(m)]
+                              int(epoch[c]), int(r[c])) for c in range(m)]
         return rng.em_draws(gens, d, s, n_iters, cfg.sweeps_per_launch)
 
     def fresh(epoch):
@@ -516,13 +521,28 @@ def supervised_run_average(seed: int, train, test, cfg: SLDAConfig, m: int,
     `run_weighted_average` with the same seed.  Returns (ŷ [D_test],
     SupervisorReport); the per-chain predictions ride along as
     `report.yhat_chains` (and `report.yhat_train_chains`)."""
-    from .parallel import _combine_weighted, _shards, predict_chains
+    from .parallel import _shards
     dev = resolve_device(device)
     train, test = train.to(dev), test.to(dev)
     sup = ChainSupervisor(_shards(train, m, cfg, dev), cfg, health=health,
                           recovery=recovery, ckpt_dir=ckpt_dir,
                           round_iters=round_iters, fault_hook=fault_hook)
     _, models, report = sup.train(seed)
+    return predict_and_combine(seed, models, train, test, cfg, rule,
+                               report), report
+
+
+def predict_and_combine(seed: int, models, train, test, cfg: SLDAConfig,
+                        rule: str, report):
+    """Every chain of `models` predicts, and the rule combines under
+    `report.alive_mask()`: the prediction half of a supervised (or
+    elastic) run, with the draws `run_weighted_average` uses for the same
+    seed.  Weighted Average predicts test and train in one pass with
+    `cfg.fuse_weighted_predict`.  The per-chain predictions ride along as
+    `report.yhat_chains` (and `report.yhat_train_chains`).  Returns ŷ
+    [D_test]."""
+    from .parallel import _combine_weighted, predict_chains
+    dev = models.eta.device
     alive = report.alive_mask(dev)
     yhat_tr = None
     if rule == "weighted" and cfg.fuse_weighted_predict:
@@ -533,14 +553,13 @@ def supervised_run_average(seed: int, train, test, cfg: SLDAConfig, m: int,
         yhat_te = predict_chains(seed, models, test, cfg, device=dev)
     report.yhat_chains = yhat_te.cpu().numpy()
     if rule == "simple":
-        return combine.simple_average(yhat_te, alive=alive), report
+        return combine.simple_average(yhat_te, alive=alive)
     if rule == "median":
-        return combine.median(yhat_te, alive=alive), report
+        return combine.median(yhat_te, alive=alive)
     if rule == "weighted":
         if yhat_tr is None:
             yhat_tr = predict_chains(seed, models, train, cfg, device=dev,
                                      stream=rng.PREDICT_TRAIN)
         report.yhat_train_chains = yhat_tr.cpu().numpy()
-        return _combine_weighted(yhat_te, yhat_tr, train.y, cfg,
-                                 alive), report
+        return _combine_weighted(yhat_te, yhat_tr, train.y, cfg, alive)
     raise ValueError(rule)

@@ -219,6 +219,19 @@ class BucketedCorpus:
             perm=self.perm.to(device), inv_perm=self.inv_perm.to(device),
             ctr_stride=self.ctr_stride, identity=self.identity)
 
+    def chain_slice(self, lo: int, hi: int) -> "BucketedCorpus":
+        """Chains lo..hi-1 of a chain-sharded schedule: every bucket's
+        tensors and `perm` / `inv_perm` cut along the chain dim, the
+        bucket cuts (shared by all the chains) kept.  A process that runs
+        a block of an ensemble's chains takes its block of the schedule
+        built over all of them."""
+        if self.n_chains is None:
+            raise ValueError("chain_slice wants a chain-sharded schedule")
+        return BucketedCorpus(
+            buckets=tuple(b.map(lambda x: x[lo:hi]) for b in self.buckets),
+            perm=self.perm[lo:hi], inv_perm=self.inv_perm[lo:hi],
+            ctr_stride=self.ctr_stride, identity=self.identity)
+
     # ---- row plumbing between original order and the bucketed layout
 
     def _bucket_perms(self) -> list:

@@ -33,8 +33,9 @@ The serving half drives `serving.SLDAPredictionService`: model tables
 poisoned after training (`poison_model_table`), a straggling dispatch
 (`inject_dispatch_delay`), and deterministic open-loop overload
 (`burst_trace` replayed by `replay_open_loop` on a `VirtualClock`).  The
-reference's elastic helpers (`ElasticEvent`, `random_elastic_events`)
-come with the elastic runtime they drive.
+elastic half (`ElasticEvent`, `random_elastic_events`) is the timeline of
+device losses, joins, stragglers and preemptions that
+`launch.elastic.ElasticRunner` replays.
 """
 from __future__ import annotations
 
@@ -254,6 +255,66 @@ def burst_trace(seed: int, vocab: int, max_len: int, *,
             L = int(np.clip(rng.poisson(len_lam), 1, max_len))
             out.append((t, rng.integers(0, vocab, L).astype(np.int32)))
     return out
+
+
+# ------------------------------------------ the elastic runner's events
+#
+# The elastic runner (`repro_torch.launch.elastic`) takes a timeline of
+# environment events, applied on the host at round boundaries, so that a
+# chaos run is a function of (seed, event list) and replays bit for bit.
+
+class ElasticEvent(NamedTuple):
+    """One environment event of the elastic runner's timeline.
+
+    kind      "device_loss" (the device leaves the pool; its chains
+              restore from the newest durable checkpoint, or are
+              quarantined without a checkpoint directory), "preempt"
+              (the SIGTERM notice: drain the checkpoints and stop,
+              resumable, at the next round boundary), "straggle" (the
+              device runs `delay_s` slow for `rounds` rounds: correct,
+              merely late) or "device_join" (a device joins the pool and
+              the chains repack over it at the boundary);
+    at_round  the wall round at whose start the event applies (from 0);
+    device    the pool id it targets (ignored by "preempt");
+    delay_s   simulated seconds added a round ("straggle" only);
+    rounds    how many rounds in a row the straggle lasts."""
+
+    kind: str
+    at_round: int
+    device: int = 0
+    delay_s: float = 0.0
+    rounds: int = 1
+
+
+_ELASTIC_KINDS = ("device_loss", "preempt", "straggle", "device_join")
+
+
+def random_elastic_events(seed: int, *, n_rounds: int, n_devices: int,
+                          n_events: int = 2,
+                          kinds=("device_loss", "straggle")) -> list:
+    """Seeded elastic chaos: `n_events` events over the round timeline,
+    drawn from numpy's `default_rng(seed)` in the reference's order, so a
+    seed names the same event list in both packages.  Device losses never
+    drain the pool below one device (a loss past that is a straggle)."""
+    for k in kinds:
+        if k not in _ELASTIC_KINDS:
+            raise ValueError(
+                f"kinds must be among {_ELASTIC_KINDS}, got {k!r}")
+    g = np.random.default_rng(seed)
+    events, losses = [], 0
+    for _ in range(n_events):
+        kind = kinds[int(g.integers(0, len(kinds)))]
+        if kind == "device_loss" and losses >= n_devices - 1:
+            kind = "straggle"
+        if kind == "device_loss":
+            losses += 1
+        events.append(ElasticEvent(
+            kind=kind,
+            at_round=int(g.integers(1, max(n_rounds, 2))),
+            device=int(g.integers(0, n_devices)),
+            delay_s=float(g.uniform(0.5, 3.0)),
+            rounds=int(g.integers(1, 4))))
+    return sorted(events, key=lambda e: e.at_round)
 
 
 def replay_open_loop(service, trace, clock: VirtualClock):

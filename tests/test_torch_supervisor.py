@@ -72,21 +72,28 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def reference_draws(key, m, d, s, cfg: SLDAConfig) -> SupervisorDraws:
+def reference_draws(key, m, d, s, cfg: SLDAConfig,
+                    chain_keys=None) -> SupervisorDraws:
     """The draws of the reference's `supervised_run_average(key, ...)`
     (its `ChainSupervisor.train(split(split(key)[0], m))`): init from
     split(keys)[:, 0]; round r of a chain at restart epoch e from
     fold_in(fold_in(base, e), r), split a boundary as `train_em` splits
-    it; a fresh init from fold_in(base, 0x5EED + e)."""
-    k1, _ = jax.random.split(jax.random.PRNGKey(key))
-    ks = jax.vmap(jax.random.split)(jax.random.split(k1, m))
+    it; a fresh init from fold_in(base, 0x5EED + e).  `r` is one round or
+    an [M] of per-chain rounds (`_fold_keys`).  `chain_keys` [M], when
+    given, replace split(split(key)[0], m): the elastic runner's
+    fold_in(root, chain)."""
+    if chain_keys is None:
+        k1, _ = jax.random.split(jax.random.PRNGKey(key))
+        chain_keys = jax.random.split(k1, m)
+    ks = jax.vmap(jax.random.split)(chain_keys)
     base, t = ks[:, 1], cfg.n_topics
     randint = jax.jit(jax.vmap(lambda k: jax.random.randint(
         k, (d, s), 0, t, jnp.int32)))
 
     def round_draws(r, epoch, n_iters):
-        keys = jax.vmap(lambda k, e: jax.random.fold_in(
-            jax.random.fold_in(k, e), r))(base, jnp.asarray(epoch))
+        rr = jnp.broadcast_to(jnp.asarray(r, jnp.int32), (m,))
+        keys = jax.vmap(lambda k, e, ri: jax.random.fold_in(
+            jax.random.fold_in(k, e), ri))(base, jnp.asarray(epoch), rr)
         spl = cfg.sweeps_per_launch
         n_b = n_iters if spl <= 1 else -(-n_iters // spl)
         sk = jnp.moveaxis(jax.vmap(lambda k: jax.random.split(k, n_b))(
