@@ -238,6 +238,37 @@ Phases, one JSON line each:
                  then the fused prefill (48, every one on the tensor
                  cores)
   ssm_profile    three of ssm_serve's decode steps, as lm_profile
+  moe_serve      phi3.5-moe-42b-a6.6b at full width cut to 4 of 32
+                 layers, bf16, 4 chains, as lm_serve (`zoo_phases`): B5 at
+                 its GQA group of 4 and B7 at D 4096 against their plain
+                 versions, then the served run with the fused prefill's
+                 MoE drop share, then `zoo_parity` (float32, 1 layer, 2
+                 chains): the first decode step's logits, kernel route
+                 against plain route, within LM_PARITY_TOL
+  arctic_serve   arctic-480b at full width cut to 1 of 35 layers, 2
+                 chains: B5 at its group of 7 and B7 at D 7168, the served
+                 run, then `zoo_parity` (float32, 1 chain)
+  frontend_serve internvl2-2b and musicgen-medium at full width and depth,
+                 bf16, 4 chains: B5 at the vision prefill's S = 456 and at
+                 musicgen's Dh 64 with a group of 1, B7 at their widths;
+                 internvl2 served as lm_serve, its fused prefill with 256
+                 patches prepended; musicgen's prefill and 32 tokens
+                 through `launch.steps.make_decode_step` (Simple
+                 Average), each step with its frame's embedding; each
+                 model's `zoo_parity` (float32, 2 chains: the forward with
+                 its embeddings and the first decode step)
+  lm_train       qwen3-1.7b at full width and depth trained on the plain
+                 route (`launch.steps.make_train_step`): 2 chains, float32
+                 parameters and compute, bf16 AdamW state, 2 × 128 tokens
+                 a chain, 4 steps; gates: finite per-chain loss and
+                 gradient norm, no kernel launched; reported: step ms,
+                 tokens/s, peak memory, 6·N·tokens a step against the
+                 float32 peak; then at the smoke config
+                 (`launch.train.train`) 10 steps straight bit-equal, loss
+                 by loss, to 6, a restart from the checkpoint and 4 more,
+                 and accum_steps=2 within 1e-4 of one batch
+  (each of the last four frees the one before it and reports its seconds
+  and peak memory)
 
 then the kernels line, the card line from nvidia-smi, and last
 {"ok": true, "device": {...}}.
@@ -332,6 +363,39 @@ B7_SHAPES = (
     ("prefill_hidden", (4, 8 * 200, 2048)),
     ("prefill_q_norm", (4, 8 * 200 * 16, 128)),
     ("prefill_inner", (4, 8 * 200, 4096)))
+
+# the rest of the LM zoo's B5 rows (as B5_SHAPES) and B7 rows (as
+# B7_SHAPES), by phase: phi3.5-moe's GQA group of 4 and arctic's of 7
+# (Dh 128; 4 and 2 chains × 8 slots), internvl2's vision prefill (256
+# patches + 200 tokens) and musicgen's Dh 64 with one query head a KV
+# head; the norms at D 4096, 7168, 2048 and 1536
+ZOO_B5 = {
+    "moe_serve": (
+        ("phi_prefill_200_gqa4", 32, 32, 8, 200, 200, 128, True, None),
+        ("phi_decode_256_gqa4", 32, 32, 8, 1, 256, 128, True, "ragged")),
+    "arctic_serve": (
+        ("arctic_prefill_200_gqa7", 16, 56, 8, 200, 200, 128, True, None),
+        ("arctic_decode_256_gqa7", 16, 56, 8, 1, 256, 128, True,
+         "ragged")),
+    "frontend_serve": (
+        ("internvl2_prefill_456", 32, 16, 8, 456, 456, 128, True, None),
+        ("musicgen_prefill_200_dh64", 32, 24, 24, 200, 200, 64, True, None),
+        ("musicgen_decode_256_dh64", 32, 24, 24, 1, 256, 64, True,
+         "ragged"))}
+ZOO_B7 = {
+    "moe_serve": (("phi_decode_hidden", (4, 8, 4096)),
+                  ("phi_prefill_hidden", (4, 8 * 200, 4096))),
+    "arctic_serve": (("arctic_decode_hidden", (2, 8, 7168)),
+                     ("arctic_prefill_hidden", (2, 8 * 200, 7168))),
+    "frontend_serve": (("internvl2_prefill_hidden", (4, 8 * 456, 2048)),
+                       ("musicgen_decode_hidden", (4, 8, 1536)))}
+# the zoo's serving configurations: (phase, arch, layers kept, chains;
+# the float32 parity's layers and chains)
+ZOO_SERVE = (("moe_serve", "phi3.5-moe-42b-a6.6b", 4, 4, 1, 2),
+             ("arctic_serve", "arctic-480b", 1, 2, 1, 1))
+# lm_train at full width and depth: chains, batch rows and tokens a row
+# per chain, steps (the first a warm-up)
+TRAIN_SHAPE = (2, 2, 128, 4)
 
 # B6's rows (label, C, b, s, H, P, N, chunk, against the oracle too, A·dt
 # scale): mamba2-1.3b's fused prefill (4 chains × 8 slots, 200 and 512
@@ -607,15 +671,19 @@ def parity_phase(phase, cfg, seed, dev, route_tol=LM_PARITY_TOL):
     torch.cuda.empty_cache()
 
 
-def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
-    """`arch` at full width and depth (random weights from `seed`), bf16,
-    4 chains, 8 slots, 200-token prompts, 32 greedy tokens through
-    `ServingEngine.generate` under `combine`; with "weighted" the chain
-    weights come from `serve_lm.inverse_loss_weights` (one full forward
-    pass), timed and counted as part of the served run.  Then the fused
-    prefill, timed, and on the first decode step after the prefill the
-    kernel route's logits against the plain route's.  Checks finite
-    logits, tokens in the vocabulary and every kernel's launches.
+def serve_phase(phase, arch, combine, seed, dev, smi, event_ms, *,
+                cfg=None, chains=4):
+    """`arch` at full width and depth (or `cfg`, the arch cut in depth;
+    random weights from `seed`), bf16, `chains` chains, 8 slots,
+    200-token prompts, 32 greedy tokens through `ServingEngine.generate`
+    under `combine`; with "weighted" the chain weights come from
+    `serve_lm.inverse_loss_weights` (one full forward pass), timed and
+    counted as part of the served run.  Then the fused prefill, timed
+    (a frontend's embeddings from `serve_lm.make_embeds` in it and in
+    the weights' pass; an MoE's drop share read), and on the first
+    decode step after the prefill the kernel route's logits against the
+    plain route's.  Checks finite logits, tokens in the vocabulary and
+    every kernel's launches.
     Returns (the engine after its prefill, the token it feeds next, the
     unprofiled ms per decode step, the served run's launches with
     "B5_prefill": the fused prefill's tensor-core B5 launches)."""
@@ -625,11 +693,18 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
     from repro_torch.serving import GenerationConfig, ServingEngine
     from repro_torch.timing import PhaseTimer
 
-    bf16, C, S, P, NEW, MAX_LEN = torch.bfloat16, 4, 8, 200, 32, 256
-    model = serve_lm.build_model(arch, smoke=False, chains=C, dtype=bf16,
-                                 device=dev, seed=seed)
+    from repro_torch.models import init_params
+
+    bf16, C, S, P, NEW, MAX_LEN = torch.bfloat16, chains, 8, 200, 32, 256
+    if cfg is None:
+        model = serve_lm.build_model(arch, smoke=False, chains=C,
+                                     dtype=bf16, device=dev, seed=seed)
+    else:
+        model = init_params(cfg, C, bf16, device=dev, generator=torch
+                            .Generator(device=dev).manual_seed(seed))
     cfg = model.cfg
     prompts = serve_lm.make_prompts(cfg.vocab_size, S, P, seed, dev)
+    embeds = serve_lm.make_embeds(cfg, C, S, P, seed, dev)
     toks = prompts[None].expand(C, S, P)
     gen_cfg = GenerationConfig(max_new_tokens=NEW, combine=combine)
     model(toks[:, :, :8], compute_dtype=bf16, last_token_only=True)  # warm
@@ -643,7 +718,8 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
     weights = None
     if combine == "weighted":
         with timer("weights"):
-            weights = serve_lm.inverse_loss_weights(model, prompts, bf16)
+            weights = serve_lm.inverse_loss_weights(model, prompts, bf16,
+                                                    embeds)
     weight_launches = read_launches()
     weight_variants = read_b5_variants()
     engine = ServingEngine(model, batch_slots=S, max_len=MAX_LEN,
@@ -663,13 +739,15 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
     gen_launches = {k: v - weight_launches[k] for k, v in launches.items()}
 
     reset_launches()
-    fused = model(toks, compute_dtype=bf16, last_token_only=True)
+    fused = model(toks, embeds, compute_dtype=bf16, last_token_only=True)
     torch.cuda.synchronize()
     fused_launches = read_launches()
     fused_variants = read_b5_variants()
     fused_b6_variants = read_b6_variants()
-    fused_ms = event_ms(lambda: model(toks, compute_dtype=bf16,
+    fused_ms = event_ms(lambda: model(toks, embeds, compute_dtype=bf16,
                                       last_token_only=True), 3)
+    with serve_lm.moe_drops(model) as drops:
+        model(toks, embeds, compute_dtype=bf16, last_token_only=True)
 
     # the first decode step after the prefill, by each route, from one
     # cache state (what the step writes in place is put back in between)
@@ -722,6 +800,11 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms):
            "first_step_disagreeing_rows_max_lead":
                float(lead.max()) if lead.numel() else None,
            "first_step_greedy_agreement_slots": agree_slots,
+           "fused_prefill_positions": P + (cfg.n_patches
+                                           if cfg.frontend == "vision"
+                                           else 0),
+           "fused_prefill_moe_drop_share":
+               sum(drops) / len(drops) if drops else None,
            "finite_logits": finite, "tokens_in_vocab": in_vocab,
            "tokens_slot0": out[0].tolist()}
     emit(row)
@@ -780,14 +863,144 @@ def profile_phase(phase, engine, tok, step_ms):
                            "ms": dev_us(e) / 1e3} for e in ops[:10]]})
 
 
+def b5_row(label, shape, dtype, dev, randn, event_ms, bound_ms,
+           phase="B5"):
+    """Kernel B5 at one shape (B, Hq, Hkv, Sq, Sk, Dh, causal, kv_len) and
+    dtype: its variant against the plain version on identical inputs; its
+    time beside the kernel it replaced (the cuda_cores variant, as every
+    call ran before) and SDPA's, by CUDA events (back to back: at decode
+    sizes the host's issue rate), by the profiler (device time a launch)
+    and on the host's clock (a call's wall time).  Emits the row, fails
+    the run if the kernel disagrees, and returns the row."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.kernels import flash_attention, ref
+    B, hq, hkv, sq, sk, dh, causal, lens = shape
+    q, k, v = (randn(dims, dtype) for dims in (
+        (B, hq, sq, dh), (B, hkv, sk, dh), (B, hkv, sk, dh)))
+    kv_len = None
+    lim = torch.full((B, sq), sk, device=dev)
+    if lens:        # kv_len over 1..Sk (or 0..Sk), the tail poisoned
+        kv_len = torch.linspace(0 if lens == "with_zero" else 1, sk,
+                                B, device=dev).round().int()
+        tail = (torch.arange(sk, device=dev)[None, :]
+                >= kv_len[:, None])[:, None, :, None]
+        k = k.masked_fill(tail, 1e4)
+        v = v.masked_fill(tail, 1e4)
+        lim = kv_len[:, None].expand(B, sq)
+    if causal:
+        lim = torch.minimum(lim, torch.arange(sq, device=dev)
+                            + sk - sq + 1).clamp(min=0)
+    kind = flash_attention.variant(dtype, sq, dh)
+
+    def kernel(name=None):
+        return flash_attention.flash_attention_cuda(
+            q, k, v, causal=causal, kv_len=kv_len,
+            kernel_variant=name)
+    out = kernel()
+    want = ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
+    err, ok = close_err(out, want, B5_TOL[str(dtype)[6:]])
+    if kv_len is None and causal and sq == sk:
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True, enable_gqa=True)
+    else:           # every row's valid keys are a prefix
+        mask = (torch.arange(sk, device=dev)
+                < lim[..., None])[:, None]         # [B, 1, Sq, Sk]
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, attn_mask=mask, enable_gqa=True)
+    lib_err, _ = close_err(lib(), want, 1.0)
+    reps = 5 if sq >= 512 else 20
+    ms = event_ms(kernel, reps)
+    dev_us = device_fields("device_us", kernel)
+    replaced = lambda: kernel("cuda_cores")  # noqa: E731
+    replaced_ms, replaced_dev_us = (
+        (event_ms(replaced, reps),
+         device_fields("replaced_device_us", replaced))
+        if kind != "cuda_cores" else
+        (ms, {f"replaced_{k}": v for k, v in dev_us.items()}))
+    plain_ms = event_ms(lambda: ref.ref_attention(
+        q, k, v, causal=causal, kv_len=kv_len), reps)
+    library_ms = event_ms(lib, reps)
+    pairs = float(lim.sum()) * hq
+    elt = q.element_size()
+    valid_kv = float(lim.amax(1).sum()) * hkv * dh * 2 * elt
+    peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_FP32_S
+    b_ms, b_by = bound_ms([q, out], 4 * dh * pairs,
+                          extra_bytes=valid_kv, peak_ops=peak)
+    row = {"phase": phase, "shape": label, "dtype": str(dtype)[6:],
+           "variant": kind, "B": B, "Hq": hq, "Hkv": hkv, "Sq": sq,
+           "Sk": sk, "Dh": dh, "causal": causal,
+           "kv_len": None if kv_len is None else
+           [int(kv_len.min()), int(kv_len.max())],
+           "max_abs_err": err, "tol": B5_TOL[str(dtype)[6:]],
+           "sdpa_max_abs_err": lib_err, "ms": ms,
+           "replaced_ms": replaced_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, **dev_us, **replaced_dev_us,
+           **device_fields("library_device_us", lib),
+           "host_us": host_us(kernel), "library_host_us": host_us(lib),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    check(ok, f"{phase} {label} {dtype}: error {err}")
+    return row
+
+
+def b7_row(label, shape, dtype, eps, dev, randn, event_ms, bound_ms,
+           phase="B7"):
+    """Kernel B7 at one norm shape [C, rows, D] and dtype: error against
+    the plain version, and each one's against float64 (C1); times beside
+    the two-pass form of the kernel it replaced and F.rms_norm's, as
+    `b5_row`'s.  Emits the row, fails the run if the kernel disagrees,
+    and returns the row."""
+    import torch
+    from torch.nn import functional as F
+    from repro_torch.kernels import ref, rmsnorm
+    x = randn(shape, dtype)
+    w = 1.0 + 0.1 * randn((shape[0], shape[2]), torch.float32)
+    kind = rmsnorm.variant(dtype, shape[2])
+
+    def kernel(name=None):
+        return rmsnorm.rmsnorm_cuda(x, w, eps=eps,
+                                    kernel_variant=name)
+    out = kernel()
+    want = ref.ref_rmsnorm(x, w, eps)
+    err, ok = close_err(out, want, B7_TOL[str(dtype)[6:]])
+    xd = x.double()
+    exact = xd * torch.rsqrt(xd.square().mean(-1, keepdim=True)
+                             + eps) * w.double()[:, None]
+    # the library call scales every chain by chain 0's weight: the
+    # same work, a weight row per chain aside
+    w0 = w[0].to(dtype)
+    lib = lambda: F.rms_norm(x, (shape[2],), w0, eps)  # noqa: E731
+    ms = event_ms(kernel, 50)
+    b_ms, b_by = bound_ms([x, w, out], 4 * x.numel())
+    row = {"phase": phase, "label": label, "shape": list(shape),
+           "dtype": str(dtype)[6:], "variant": kind,
+           "max_abs_err": err, "tol": B7_TOL[str(dtype)[6:]],
+           "err_f64": float((out.double() - exact).abs().max()),
+           "plain_err_f64": float((want.double() - exact)
+                                  .abs().max()),
+           "ms": ms,
+           "replaced_ms": event_ms(lambda: kernel("two_pass"), 50),
+           **device_fields("replaced_device_us",
+                           lambda: kernel("two_pass")),
+           "plain_ms": event_ms(lambda: ref.ref_rmsnorm(x, w, eps),
+                                20),
+           "library_ms": event_ms(lib, 50),
+           **device_fields("device_us", kernel),
+           **device_fields("library_device_us", lib),
+           "host_us": host_us(kernel), "library_host_us": host_us(lib),
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    check(ok, f"{phase} {shape} {dtype}: error {err}")
+    return row
+
+
 def lm_phases(seed, dev, smi, event_ms, bound_ms):
     """The phases of the dense LM serving slice (B5, B7, lm_parity,
     lm_serve, lm_profile).  Returns their kernels-line rows and the
     kernels' launches in the lm_serve run."""
     import torch
-    from torch.nn import functional as F
     from repro_torch.configs import qwen3_1_7b
-    from repro_torch.kernels import flash_attention, ref, rmsnorm
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = {}
@@ -795,130 +1008,22 @@ def lm_phases(seed, dev, smi, event_ms, bound_ms):
     def randn(shape, dtype):
         return torch.randn(shape, device=dev, generator=gen).to(dtype)
 
-    # ---- B5: each row's variant against the plain version on identical
-    # inputs; its time beside the kernel it replaced (the cuda_cores
-    # variant, as every call ran before) and SDPA's, by CUDA events (back
-    # to back: at decode sizes the host's issue rate), by the profiler
-    # (device time a launch) and on the host's clock (a call's wall time)
-    for label, B, hq, hkv, sq, sk, dh, causal, lens in B5_SHAPES:
+    # ---- B5 and B7 at the slice's shapes (`b5_row`, `b7_row`)
+    for label, *shape in B5_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (randn(shape, dtype) for shape in (
-                (B, hq, sq, dh), (B, hkv, sk, dh), (B, hkv, sk, dh)))
-            kv_len = None
-            lim = torch.full((B, sq), sk, device=dev)
-            if lens:        # kv_len over 1..Sk (or 0..Sk), the tail poisoned
-                kv_len = torch.linspace(0 if lens == "with_zero" else 1, sk,
-                                        B, device=dev).round().int()
-                tail = (torch.arange(sk, device=dev)[None, :]
-                        >= kv_len[:, None])[:, None, :, None]
-                k = k.masked_fill(tail, 1e4)
-                v = v.masked_fill(tail, 1e4)
-                lim = kv_len[:, None].expand(B, sq)
-            if causal:
-                lim = torch.minimum(lim, torch.arange(sq, device=dev)
-                                    + sk - sq + 1).clamp(min=0)
-            kind = flash_attention.variant(dtype, sq, dh)
-
-            def kernel(name=None):
-                return flash_attention.flash_attention_cuda(
-                    q, k, v, causal=causal, kv_len=kv_len,
-                    kernel_variant=name)
-            out = kernel()
-            want = ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
-            err, ok = close_err(out, want, B5_TOL[str(dtype)[6:]])
-            if kv_len is None and causal and sq == sk:
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    q, k, v, is_causal=True, enable_gqa=True)
-            else:           # every row's valid keys are a prefix
-                mask = (torch.arange(sk, device=dev)
-                        < lim[..., None])[:, None]         # [B, 1, Sq, Sk]
-                lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                    q, k, v, attn_mask=mask, enable_gqa=True)
-            lib_err, _ = close_err(lib(), want, 1.0)
-            reps = 5 if sq >= 512 else 20
-            ms = event_ms(kernel, reps)
-            dev_us = device_fields("device_us", kernel)
-            replaced = lambda: kernel("cuda_cores")  # noqa: E731
-            replaced_ms, replaced_dev_us = (
-                (event_ms(replaced, reps),
-                 device_fields("replaced_device_us", replaced))
-                if kind != "cuda_cores" else
-                (ms, {f"replaced_{k}": v for k, v in dev_us.items()}))
-            plain_ms = event_ms(lambda: ref.ref_attention(
-                q, k, v, causal=causal, kv_len=kv_len), reps)
-            library_ms = event_ms(lib, reps)
-            pairs = float(lim.sum()) * hq
-            elt = q.element_size()
-            valid_kv = float(lim.amax(1).sum()) * hkv * dh * 2 * elt
-            peak = PEAK_BF16_S if dtype == torch.bfloat16 else PEAK_FP32_S
-            b_ms, b_by = bound_ms([q, out], 4 * dh * pairs,
-                                  extra_bytes=valid_kv, peak_ops=peak)
-            row = {"phase": "B5", "shape": label, "dtype": str(dtype)[6:],
-                   "variant": kind, "B": B, "Hq": hq, "Hkv": hkv, "Sq": sq,
-                   "Sk": sk, "Dh": dh, "causal": causal,
-                   "kv_len": None if kv_len is None else
-                   [int(kv_len.min()), int(kv_len.max())],
-                   "max_abs_err": err, "tol": B5_TOL[str(dtype)[6:]],
-                   "sdpa_max_abs_err": lib_err, "ms": ms,
-                   "replaced_ms": replaced_ms, "plain_ms": plain_ms,
-                   "library_ms": library_ms, **dev_us, **replaced_dev_us,
-                   **device_fields("library_device_us", lib),
-                   "host_us": host_us(kernel), "library_host_us": host_us(lib),
-                   "bound_ms": b_ms, "bound_by": b_by}
-            emit(row)
+            row = b5_row(label, shape, dtype, dev, randn, event_ms, bound_ms)
             if dtype == torch.bfloat16 and label == "decode_256":
                 rows["B5"] = row
             if dtype == torch.bfloat16 and label == "prefill_200":
                 rows["B5_prefill"] = row
-            check(ok, f"B5 {label} {dtype}: error {err}")
 
-    # ---- B7 at the decode step's and the prefill's norm shapes: error
-    # against the plain version, and each one's against float64 (C1);
-    # times beside the two-pass form of the kernel it replaced and
-    # F.rms_norm's, as B5's
     eps = qwen3_1_7b.CONFIG.norm_eps
     for label, shape in B7_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
-            x = randn(shape, dtype)
-            w = 1.0 + 0.1 * randn((shape[0], shape[2]), torch.float32)
-            kind = rmsnorm.variant(dtype, shape[2])
-
-            def kernel(name=None):
-                return rmsnorm.rmsnorm_cuda(x, w, eps=eps,
-                                            kernel_variant=name)
-            out = kernel()
-            want = ref.ref_rmsnorm(x, w, eps)
-            err, ok = close_err(out, want, B7_TOL[str(dtype)[6:]])
-            xd = x.double()
-            exact = xd * torch.rsqrt(xd.square().mean(-1, keepdim=True)
-                                     + eps) * w.double()[:, None]
-            # the library call scales every chain by chain 0's weight: the
-            # same work, a weight row per chain aside
-            w0 = w[0].to(dtype)
-            lib = lambda: F.rms_norm(x, (shape[2],), w0, eps)  # noqa: E731
-            ms = event_ms(kernel, 50)
-            b_ms, b_by = bound_ms([x, w, out], 4 * x.numel())
-            row = {"phase": "B7", "label": label, "shape": list(shape),
-                   "dtype": str(dtype)[6:], "variant": kind,
-                   "max_abs_err": err, "tol": B7_TOL[str(dtype)[6:]],
-                   "err_f64": float((out.double() - exact).abs().max()),
-                   "plain_err_f64": float((want.double() - exact)
-                                          .abs().max()),
-                   "ms": ms,
-                   "replaced_ms": event_ms(lambda: kernel("two_pass"), 50),
-                   **device_fields("replaced_device_us",
-                                   lambda: kernel("two_pass")),
-                   "plain_ms": event_ms(lambda: ref.ref_rmsnorm(x, w, eps),
-                                        20),
-                   "library_ms": event_ms(lib, 50),
-                   **device_fields("device_us", kernel),
-                   **device_fields("library_device_us", lib),
-                   "host_us": host_us(kernel), "library_host_us": host_us(lib),
-                   "bound_ms": b_ms, "bound_by": b_by}
-            emit(row)
+            row = b7_row(label, shape, dtype, eps, dev, randn, event_ms,
+                         bound_ms)
             if label == "decode_hidden" and dtype == torch.bfloat16:
                 rows["B7"] = row
-            check(ok, f"B7 {shape} {dtype}: error {err}")
 
     # ---- lm_parity: full width, 2 layers, f32; kernel against plain route
     parity_phase("lm_parity", dataclasses.replace(qwen3_1_7b.CONFIG,
@@ -1068,6 +1173,311 @@ def ssm_phases(seed, dev, smi, event_ms, bound_ms):
     gc.collect()
     torch.cuda.empty_cache()
     return {"B6": row}, {"B6": launches["B6"]}
+
+
+def zoo_parity(phase, cfg, chains, seed, dev, *, prompt_len=32):
+    """`cfg` in float32, `chains` chains, 8 slots, random weights from
+    `seed` (a frontend's embeddings from `serve_lm.make_embeds`): the
+    kernel route against the plain route (`route_parity.plain_route`)
+    for the forward pass over `prompt_len`-token prompts, with the
+    embeddings, and for the first decode step after the prompts are
+    primed by decode steps (audio: each step with its frame), both routes
+    from one cache state.  Each read as `route_parity.need` (the CPU
+    tests' rule).  The decode step is gated within LM_PARITY_TOL, and so
+    is the forward pass but for MoE: there 1,600 router choices a layer
+    see the two routes' rounding, and one within it of a tie sends a
+    token to another expert (the decode step's 16 choices are gated)."""
+    import torch
+    from repro_torch import serve_lm
+    from repro_torch.models import init_params
+    from repro_torch.route_parity import need, plain_route
+
+    f32, S, P = torch.float32, 8, prompt_len
+    model = init_params(cfg, chains, f32, device=dev, generator=torch
+                        .Generator(device=dev).manual_seed(seed))
+    toks = serve_lm.make_prompts(cfg.vocab_size, S, P + 1, seed, dev)[
+        None].expand(chains, S, P + 1)
+    emb = serve_lm.make_embeds(cfg, chains, S, P + 1, seed, dev)
+    audio = cfg.frontend == "audio"
+
+    def frames(t0, t1):
+        return emb[:, :, t0:t1] if audio else None
+
+    fwd_emb = frames(0, P) if audio else emb
+    fwd = model(toks[:, :, :P], fwd_emb, compute_dtype=f32)
+    reset_launches()
+    with plain_route():
+        fwd_plain = model(toks[:, :, :P], fwd_emb, compute_dtype=f32)
+    plain_launches = sum(read_launches().values())
+    cache = model.init_cache(S, P + 1, f32)
+    for t in range(P):
+        _, cache = model.decode_step(cache, toks[:, :, t:t + 1],
+                                     frames(t, t + 1), compute_dtype=f32)
+    saved = [t.clone() for t in cache_tensors(cache)]
+    last = toks[:, :, P:P + 1]
+    step, _ = model.decode_step(cache, last, frames(P, P + 1),
+                                compute_dtype=f32)
+    for t, s in zip(cache_tensors(cache), saved):
+        t.copy_(s)
+    with plain_route():
+        step_plain, _ = model.decode_step(cache, last, frames(P, P + 1),
+                                          compute_dtype=f32)
+    row = {"phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+           "chains": chains, "dtype": "float32", "prompt_len": P,
+           "forward": need(fwd, fwd_plain),
+           "decode_step": need(step, step_plain),
+           "plain_route_launches": plain_launches, "tol": LM_PARITY_TOL,
+           "forward_gated": not cfg.is_moe}
+    emit(row)
+    check(plain_launches == 0, f"{phase}: the plain route launched")
+    check(row["decode_step"][0] <= LM_PARITY_TOL
+          and (cfg.is_moe or row["forward"][0] <= LM_PARITY_TOL),
+          f"{phase}: route parity {row}")
+    del model, cache, saved
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def musicgen_serve(seed, dev, event_ms):
+    """musicgen-medium at full width and depth, bf16, 4 chains, 8 slots:
+    200 prompt steps and 32 greedy tokens through
+    `launch.steps.make_decode_step(combine="simple")`, every step with
+    its frame's embedding (`serve_lm.make_embeds`).  Checks finite logits,
+    tokens in the vocabulary and each step's B5 and B7 launches.
+    Returns the served run's launches."""
+    import torch
+    from repro_torch import serve_lm
+    from repro_torch.launch.sharding import DistConfig
+    from repro_torch.launch.steps import make_decode_step
+
+    bf16, C, S, P, NEW = torch.bfloat16, 4, 8, 200, 32
+    model = serve_lm.build_model("musicgen-medium", smoke=False, chains=C,
+                                 dtype=bf16, device=dev, seed=seed)
+    cfg = model.cfg
+    prompts = serve_lm.make_prompts(cfg.vocab_size, S, P, seed, dev)
+    frames = serve_lm.make_embeds(cfg, C, S, P + NEW, seed, dev)
+    step = make_decode_step(cfg, DistConfig(
+        n_chains=C, compute_dtype="bfloat16", use_kernels=True), "simple")
+    toks = prompts[None].expand(C, S, P)
+    cache = model.init_cache(S, P + NEW, bf16)
+    step(model, model.init_cache(S, 4, bf16),
+         {"tokens": toks[:, :, :1], "embeds": frames[:, :, :1]})  # warm
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for t in range(P):
+        _, cache = step(model, cache, {"tokens": toks[:, :, t:t + 1],
+                                       "embeds": frames[:, :, t:t + 1]})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok, out = toks[:, :, -1:], []
+    s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    s0.record()
+    for t in range(P, P + NEW):
+        mix, cache = step(model, cache, {"tokens": tok,
+                                         "embeds": frames[:, :, t:t + 1]})
+        nxt = mix[:, -1].argmax(-1).to(torch.int32)              # [S]
+        tok = nxt[None, :, None].expand(C, S, 1).contiguous()
+        out.append(nxt)
+    s1.record()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    out = torch.stack(out, 1)
+    _, per_step = launches_per_pass(cfg)
+    finite = bool(mix.isfinite().all())
+    in_vocab = bool(((out >= 0) & (out < cfg.vocab_size)).all())
+    step_ms = s0.elapsed_time(s1) / NEW
+    row = {"phase": "frontend_serve", "arch": cfg.name, "chains": C,
+           "slots": S, "prompt_len": P, "new_tokens": NEW,
+           "combine": "simple", "frames_per_step": 1,
+           "prefill_by_decode_s": prefill_s, "decode_ms_per_step": step_ms,
+           "tokens_per_s": S * NEW / (step_ms * NEW / 1e3),
+           "launches": launches, "finite_logits": finite,
+           "tokens_in_vocab": in_vocab, "tokens_slot0": out[0].tolist()}
+    emit(row)
+    check(finite and in_vocab, f"musicgen_serve: {row}")
+    check(launches == {k: v * (P + NEW) for k, v in per_step.items()},
+          f"musicgen_serve: launches {launches}")
+    del model, cache
+    return launches
+
+
+def zoo_phases(seed, dev, smi, event_ms, bound_ms):
+    """The rest of the LM zoo (moe_serve, arctic_serve, frontend_serve)
+    and single-card training (lm_train).  Each phase frees the one
+    before it and reports its seconds and peak memory.  Returns each
+    serving phase's B5 (decode), B5_prefill and B7 launches."""
+    import torch
+    from repro_torch.configs import get_arch
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    launches = {}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def start():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return time.perf_counter()
+
+    def done(phase, t0, **more):
+        emit({"phase": phase, "done": True,
+              "seconds": time.perf_counter() - t0,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(),
+              "card": smi, **more})
+
+    def kernel_rows(phase, eps):
+        for label, *shape in ZOO_B5[phase]:
+            for dtype in (torch.bfloat16, torch.float32):
+                b5_row(label, shape, dtype, dev, randn, event_ms, bound_ms)
+        for label, shape in ZOO_B7[phase]:
+            for dtype in (torch.bfloat16, torch.float32):
+                b7_row(label, shape, dtype, eps, dev, randn, event_ms,
+                       bound_ms)
+
+    def counts(got):
+        return {k: got[k] for k in ("B5", "B5_prefill", "B7")}
+
+    for phase, arch, layers, chains, p_layers, p_chains in ZOO_SERVE:
+        t0 = start()
+        full = get_arch(arch)
+        assert full.moe_top_k == 2       # the combine's exact sum
+        kernel_rows(phase, full.norm_eps)
+        cut = dataclasses.replace(full, n_layers=layers)
+        engine, _, _, got = serve_phase(phase, arch, "simple", seed, dev,
+                                        smi, event_ms, cfg=cut,
+                                        chains=chains)
+        launches[phase] = counts(got)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+        zoo_parity(phase, dataclasses.replace(full, n_layers=p_layers),
+                   p_chains, seed, dev)
+        done(phase, t0, layers=f"{layers} of {full.n_layers}",
+             chains=chains)
+
+    t0 = start()
+    kernel_rows("frontend_serve", get_arch("internvl2-2b").norm_eps)
+    engine, _, _, got = serve_phase("frontend_serve", "internvl2-2b",
+                                    "simple", seed, dev, smi, event_ms)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    audio = musicgen_serve(seed, dev, event_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["frontend_serve"] = {
+        "B5": got["B5"] + audio["B5"], "B5_prefill": got["B5_prefill"],
+        "B7": got["B7"] + audio["B7"]}
+    for arch in ("internvl2-2b", "musicgen-medium"):
+        zoo_parity("frontend_serve", get_arch(arch), 2, seed, dev)
+    done("frontend_serve", t0)
+
+    t0 = start()
+    lm_train_phase(seed, dev, smi, event_ms)
+    done("lm_train", t0)
+    return launches
+
+
+def lm_train_phase(seed, dev, smi, event_ms):
+    """qwen3-1.7b at full width and depth trained on the plain route
+    (TRAIN_SHAPE), then the smoke config's restart and accumulation
+    checks (see the module's docstring)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.sharding import DistConfig
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import make_lm_batch, train
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    C, B, T, steps = TRAIN_SHAPE
+    cfg = get_arch("qwen3-1.7b")
+    model = init_params(cfg, C, torch.float32, device=dev, trainable=True,
+                        generator=torch.Generator(device=dev)
+                        .manual_seed(seed))
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=steps,
+                    opt_dtype="bfloat16")
+    state = init_opt_state(model.param_tree(), opt)
+    step_fn = make_train_step(cfg, DistConfig(
+        n_chains=C, compute_dtype="float32", use_kernels=False,
+        remat=False), opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, norms, ms = [], [], []
+    for i in range(steps):
+        batch = make_lm_batch(seed, i, cfg, C, B, T, dev)
+        s0, s1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s0.record()
+        model, state, m = step_fn(model, state, batch)
+        s1.record()
+        torch.cuda.synchronize()
+        ms.append(s0.elapsed_time(s1))
+        losses.append(m["loss"].tolist())
+        norms.append(m["grad_norm"].tolist())
+    launched = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.mean(ms[1:]))
+    tokens = C * B * T
+    n = cfg.param_count()
+    row = {"phase": "lm_train", "card": smi, "arch": cfg.name,
+           "layers": cfg.n_layers, "chains": C, "batch": B, "seq": T,
+           "param_dtype": "float32", "compute_dtype": "float32",
+           "opt_dtype": opt.opt_dtype, "steps": steps,
+           "step_ms": ms, "step_ms_after_first": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "max_memory_allocated": peak, "loss": losses,
+           "grad_norm": norms, "launches": launched,
+           "params_per_chain": n,
+           "flops_per_step_6nt": 6.0 * n * tokens,
+           "fp32_peak_share": 6.0 * n * tokens / (step_ms / 1e3)
+           / PEAK_FP32_S}
+    emit(row)
+    check(bool(np.isfinite(losses).all() and np.isfinite(norms).all()),
+          f"lm_train: non-finite loss or norm {row}")
+    check(sum(launched.values()) == 0,
+          f"lm_train: a kernel launched on the plain route {launched}")
+    del model, state, step_fn, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the smoke config: restart bit for bit, accumulation within 1e-4
+    kw = dict(smoke=True, batch=2, seq=16, chains=2, lr=1e-3,
+              log_every=100, schedule_steps=10, device=dev)
+    with tempfile.TemporaryDirectory(prefix="lm_train_") as tmp:
+        _, _, full = train("qwen3-1.7b", steps=10, **kw)
+        train("qwen3-1.7b", steps=6, ckpt_dir=tmp, save_interval=6, **kw)
+        _, _, tail = train("qwen3-1.7b", steps=10, ckpt_dir=tmp,
+                           resume=True, save_interval=100, **kw)
+    smoke = get_arch("qwen3-1.7b", smoke=True)
+    acc_opt = OptConfig(lr=1e-3, warmup_steps=0, clip_norm=1e9)
+    batch = make_lm_batch(seed, 0, smoke, 2, 8, 16, dev)
+    after = {}
+    for a in (1, 2):
+        m = init_params(smoke, 2, device=dev, trainable=True, seed=seed)
+        st = init_opt_state(m.param_tree(), acc_opt)
+        m, _, met = make_train_step(smoke, DistConfig(
+            n_chains=2, accum_steps=a, compute_dtype="float32",
+            remat=False), acc_opt)(m, st, batch)
+        after[a] = (met["loss"], [p.detach() for p in m.parameters()])
+    acc_err = max(float((x - y).abs().max())
+                  for x, y in zip(after[1][1], after[2][1]))
+    loss_err = float((after[1][0] - after[2][0]).abs().max())
+    row = {"phase": "lm_train", "smoke_restart_equal": bool(
+        np.array_equal(full[6:], tail)),
+        "smoke_losses_straight": full[6:].tolist(),
+        "smoke_losses_restarted": tail.tolist(),
+        "accum2_max_param_diff": acc_err, "accum2_max_loss_diff": loss_err}
+    emit(row)
+    check(row["smoke_restart_equal"], f"lm_train: restart differs {row}")
+    check(acc_err <= 1e-4 and loss_err <= 1e-4,
+          f"lm_train: accumulation differs {row}")
 
 
 def supervised_phase(seed, dev, smi, train, test, runs, zero_counts,
@@ -3479,6 +3889,10 @@ def main() -> int:
                                         bound_ms)
     rows.update(ssm_rows)
 
+    # ---- the rest of the LM zoo and training: moe_serve, arctic_serve,
+    # frontend_serve, lm_train
+    zoo_launches = zoo_phases(args.seed, dev, smi, event_ms, bound_ms)
+
     # each kernel's launches in the run of the path it carries; B4 runs
     # inside every sparse launch of B1–B3, at both settings; B5 (decode)
     # and B7 in lm_serve's generate, B5_prefill in its fused prefill; B6 in
@@ -3534,7 +3948,9 @@ def main() -> int:
         **({"serving_launches": sum(row[k] for row in serving.values())}
            if k in ("B1", "B4") else {}),
         **({"parallel_launches": parallel[k], "elastic_launches": elastic[k]}
-           if k in parallel else {})}
+           if k in parallel else {}),
+        **({"zoo_launches": {ph: n[k] for ph, n in zoo_launches.items()}}
+           if k in ("B5", "B5_prefill", "B7") else {})}
         for k, (name, src, rep) in sources.items()]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -37,7 +37,6 @@ leaf's device with its dtype.
 """
 from __future__ import annotations
 
-import dataclasses
 import json
 import os
 import shutil
@@ -48,6 +47,8 @@ import zipfile
 
 import numpy as np
 import torch
+
+from repro_torch.tree import leaves_with_paths, map_with_paths
 
 #: temporary directories of this process's saves in flight: the sweep
 #: never reclaims a directory another thread (the async writer) fills
@@ -68,84 +69,38 @@ class CheckpointNotFoundError(FileNotFoundError):
             f"available steps: {self.available_steps or 'none'}")
 
 
-# ------------------------------------------------------------ the tree
-
-def _children(node):
-    """[(key string, child)] of a container node, or None for a leaf.
-    None is an empty node, as in JAX."""
-    if node is None:
-        return []
-    if isinstance(node, dict):
-        return [(f"[{k!r}]", node[k]) for k in sorted(node)]
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return [(f".{f}", getattr(node, f)) for f in node._fields]
-    if isinstance(node, (list, tuple)):
-        return [(f"[{i}]", c) for i, c in enumerate(node)]
-    if dataclasses.is_dataclass(node) and not isinstance(node, type):
-        return [(f".{f.name}", getattr(node, f.name))
-                for f in dataclasses.fields(node)]
-    return None
-
-
-def _rebuild(node, children):
-    if node is None:
-        return None
-    if isinstance(node, dict):
-        return dict(zip(sorted(node), children))
-    if isinstance(node, tuple) and hasattr(node, "_fields"):
-        return type(node)(*children)
-    if isinstance(node, (list, tuple)):
-        return type(node)(children)
-    return dataclasses.replace(node, **{
-        f.name: c for f, c in zip(dataclasses.fields(node), children)})
-
-
-def _leaves(tree, prefix=""):
-    """[(keystr path, leaf)] in JAX's flattening order."""
-    kids = _children(tree)
-    if kids is None:
-        return [(prefix, tree)]
-    return [item for key, child in kids
-            for item in _leaves(child, prefix + key)]
-
-
-def _map(fn, tree, prefix=""):
-    """The tree with each leaf replaced by fn(path, leaf)."""
-    kids = _children(tree)
-    if kids is None:
-        return fn(prefix, tree)
-    return _rebuild(tree, [_map(fn, child, prefix + key)
-                           for key, child in kids])
-
-
 def _host(leaf, copy: bool = False) -> np.ndarray:
-    """A leaf as a host array (a fresh copy if `copy`)."""
+    """A leaf as a host array (a fresh copy if `copy`).  numpy has no
+    bfloat16: a bf16 tensor is written as float32, exactly, and a restore
+    casts it back to its template leaf's dtype."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t, copy = t.float(), False
         return (t.to("cpu", copy=True) if copy else t.cpu()).numpy()
     return np.array(leaf) if copy else np.asarray(leaf)
 
 
 def _chain_slice(tree, i):
-    return _map(lambda _, x: x[i] if getattr(x, "ndim", 0) > 0 else x,
+    return map_with_paths(lambda _, x: x[i] if getattr(x, "ndim", 0) > 0 else x,
                 tree)
 
 
 def _n_chains(tree) -> int:
-    return _leaves(tree)[0][1].shape[0]
+    return leaves_with_paths(tree)[0][1].shape[0]
 
 
 def _stack(chains):
     """Per-chain trees of tensors → one tree with a leading chain dim."""
-    flat = [dict(_leaves(c)) for c in chains]
-    return _map(lambda path, _: torch.stack([f[path] for f in flat]),
+    flat = [dict(leaves_with_paths(c)) for c in chains]
+    return map_with_paths(lambda path, _: torch.stack([f[path] for f in flat]),
                 chains[0])
 
 
 def _unflatten_into(template_chain, flat):
     """The template's tree (of tensors) with each leaf read from `flat` by
     its path, in the template leaf's dtype and on its device."""
-    return _map(lambda path, tmpl: torch.from_numpy(np.array(flat[path])).to(
+    return map_with_paths(lambda path, tmpl: torch.from_numpy(np.array(flat[path])).to(
         device=tmpl.device, dtype=tmpl.dtype), template_chain)
 
 
@@ -180,7 +135,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state, *,
     """Publish `state` as step `step`: a tree whose array leaves have a
     leading chain dim (0-d leaves are written into every chain's file).
     Returns the step's directory."""
-    host = _map(lambda _, x: _host(x), state)
+    host = map_with_paths(lambda _, x: _host(x), state)
     if n_chains is None:
         n_chains = _n_chains(host)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
@@ -190,7 +145,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state, *,
         _ACTIVE_TMP.add(tmp)
     try:
         for i in range(n_chains):
-            flat = dict(_leaves(_chain_slice(host, i)))
+            flat = dict(leaves_with_paths(_chain_slice(host, i)))
             path = os.path.join(tmp, f"chain_{i:03d}.npz")
             with open(path, "wb") as f:
                 np.savez(f, **flat)
@@ -454,7 +409,7 @@ class AsyncCheckpointManager(CheckpointManager):
         self._raise_pending_error()
         # a fresh host copy of every leaf: the writer owns it until its
         # publish, whatever the loop does to its own tensors next
-        snap = _map(lambda _, x: _host(x, copy=True), state)
+        snap = map_with_paths(lambda _, x: _host(x, copy=True), state)
         with self._lock:
             self._job = (step, snap, extra)
             self._job_done.clear()

@@ -10,6 +10,9 @@ CONFIG = ModelConfig(
     rope_theta=1e6,
 )
 
+RUN = dict(chains_single=16, chains_multi=32, fsdp=False, accum_steps=4,
+           param_dtype="float32", opt_dtype="float32")
+
 SMOKE = dataclasses.replace(
     CONFIG, name="codeqwen1.5-7b-smoke", n_layers=2, d_model=128, n_heads=4,
     n_kv_heads=4, d_ff=256, vocab_size=512)

@@ -1,0 +1,19 @@
+"""internvl2-2b [vlm] — InternLM2-1.8b backbone; the InternViT frontend is
+a stub: the caller passes precomputed patch embeddings, which one
+projection maps into the model.  [arXiv:2404.16821; hf]"""
+import dataclasses
+
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="internvl2-2b", n_layers=24, d_model=2048, n_heads=16,
+    n_kv_heads=8, d_ff=8192, vocab_size=92553, rope_theta=1e6,
+    frontend="vision", n_patches=256,
+)
+
+RUN = dict(chains_single=16, chains_multi=32, fsdp=False, accum_steps=1,
+           param_dtype="float32", opt_dtype="float32")
+
+SMOKE = dataclasses.replace(
+    CONFIG, name="internvl2-2b-smoke", n_layers=2, d_model=128, n_heads=4,
+    n_kv_heads=2, d_ff=256, vocab_size=512, n_patches=8)

@@ -9,6 +9,9 @@ CONFIG = ModelConfig(
     ssm_head_dim=64, tie_embeddings=True,
 )
 
+RUN = dict(chains_single=16, chains_multi=32, fsdp=False, accum_steps=1,
+           param_dtype="float32", opt_dtype="float32")
+
 SMOKE = dataclasses.replace(
     CONFIG, name="mamba2-1.3b-smoke", n_layers=2, d_model=128, n_heads=1,
     n_kv_heads=1, vocab_size=512, layer_pattern="M" * 2, ssm_state=16,

@@ -12,6 +12,11 @@ CONFIG = ModelConfig(
     rope_theta=1e6, scan_layers=True,
 )
 
+# memory plan: too large for per-device replicas → 1 chain per pod,
+# FSDP over the data axis, bf16 optimizer state (DESIGN.md §6)
+RUN = dict(chains_single=1, chains_multi=2, fsdp=True, accum_steps=16,
+           param_dtype="float32", opt_dtype="bfloat16")
+
 SMOKE = dataclasses.replace(
     CONFIG, name="qwen2.5-32b-smoke", n_layers=2, d_model=128, n_heads=4,
     n_kv_heads=2, d_ff=256, vocab_size=512, head_dim=32)

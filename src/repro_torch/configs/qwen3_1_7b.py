@@ -9,6 +9,9 @@ CONFIG = ModelConfig(
     rope_theta=1e6,
 )
 
+RUN = dict(chains_single=16, chains_multi=32, fsdp=False, accum_steps=1,
+           param_dtype="float32", opt_dtype="float32")
+
 SMOKE = dataclasses.replace(
     CONFIG, name="qwen3-1.7b-smoke", n_layers=2, d_model=128, n_heads=4,
     n_kv_heads=2, d_ff=256, vocab_size=512, head_dim=32)

@@ -11,6 +11,9 @@ CONFIG = ModelConfig(
     shared_attn_every=6,
 )
 
+RUN = dict(chains_single=16, chains_multi=32, fsdp=False, accum_steps=1,
+           param_dtype="float32", opt_dtype="float32")
+
 SMOKE = dataclasses.replace(
     CONFIG, name="zamba2-2.7b-smoke", n_layers=6, d_model=128, n_heads=4,
     n_kv_heads=4, d_ff=256, vocab_size=512, layer_pattern="M" * 6,

@@ -123,7 +123,14 @@ def check_launch(stem: str, rc: int) -> None:
 
 
 def check_operand(name: str, t: torch.Tensor, dtype, shape, device) -> None:
-    """Validate a kernel operand before its pointer is handed over."""
+    """Validate a kernel operand before its pointer is handed over.  An
+    operand that requires a gradient is refused: the kernels have no
+    backward, so an autograd graph through one would lose its gradient
+    without a word (training takes the plain route)."""
+    if t.requires_grad:
+        raise ValueError(f"{name}: requires_grad, and the CUDA kernels "
+                         "have no backward: run the plain route "
+                         "(use_kernels=False)")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:

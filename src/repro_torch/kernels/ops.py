@@ -3,7 +3,11 @@
 A CUDA tensor goes to the hand-written kernel (`slda_gibbs`,
 `slda_train`, `slda_predict`, `flash_attention`, `ssd_scan`, `rmsnorm`),
 or the kernel raises; a CPU tensor goes to the plain version in `ref`.
-There is no other route and no fallback.
+There is no other route and no fallback.  The LM ops (`attention`, `ssd`,
+`rmsnorm`) also take the caller's route, `use_kernels` (the reference's
+`use_pallas`): false runs the plain version on any device, which is how
+the LM trainer runs, under autograd (the kernels have no backward, and
+their wrappers refuse an operand that requires a gradient).
 The ops are the reference's `chain_axis=True` forms and keep its
 layouts: tables come in as `[M, T, W]` and are transposed to the
 row-gather `[M, W, T]` layout here, inside the op.  With
@@ -118,13 +122,13 @@ def slda_predict_sweeps(tokens, mask, z0, ndt0, phi, seeds, *, alpha,
                                           phi_t, **kw)
 
 
-def attention(q, k, v, *, causal=True, kv_len=None):
+def attention(q, k, v, *, causal=True, kv_len=None, use_kernels=True):
     """Causal GQA attention, `ref.ref_attention`'s semantics at every
     shape.  q [B, Hq, Sq, Dh]; k, v [B, Hkv, Sk, Dh]; kv_len optional
     [B].  Nothing is padded: the kernel's grid covers the ragged last
     block itself, so the causal diagonal stays at Sk - Sq of the true
     shapes (the reference's padded Pallas route shifts it)."""
-    if _route(q):
+    if use_kernels and _route(q):
         if kv_len is not None:
             kv_len = kv_len.to(torch.int32).contiguous()
         return _flash.flash_attention_cuda(*_dense(q, k, v), causal=causal,
@@ -132,7 +136,7 @@ def attention(q, k, v, *, causal=True, kv_len=None):
     return ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
 
 
-def ssd(x, dt, A, B, C, *, chunk=64):
+def ssd(x, dt, A, B, C, *, chunk=64, use_kernels=True):
     """The Mamba-2 SSD scan over s for every chain at once, the
     reference's `ops.ssd` with the chain axis its models vmap over: x
     [C, b, s, h, p]; dt [C, b, s, h]; A [C, h]; B, C [C, b, s, n] (shared
@@ -140,7 +144,7 @@ def ssd(x, dt, A, B, C, *, chunk=64):
     reference takes it; the kernel needs no padding, and equals the
     padded form (a padded step has dt = 0 and carries nothing)."""
     ch = min(chunk, x.shape[2])
-    if _route(x):
+    if use_kernels and _route(x):
         return _ssd_scan.ssd_scan_cuda(*_dense(x, dt, A, B, C), chunk=ch)
     return ref.ref_ssd_chunked(x, dt, A, B, C, chunk=ch)
 
@@ -150,7 +154,7 @@ def ssd(x, dt, A, B, C, *, chunk=64):
 ssd_decode_step = ref.ssd_decode_step
 
 
-def rmsnorm(x, w, *, eps=1e-6):
+def rmsnorm(x, w, *, eps=1e-6, use_kernels=True):
     """RMSNorm of the rows of x [..., D]: w [D] scales every row, w
     [C, D] the rows of chain c (x [C, ..., D]) by w[c]."""
     D = x.shape[-1]
@@ -158,7 +162,7 @@ def rmsnorm(x, w, *, eps=1e-6):
     if w.shape[-1] != D or (w.ndim == 2 and (x.ndim < 2 or x.shape[0] != C)):
         raise ValueError(f"rmsnorm: x {tuple(x.shape)} with w "
                          f"{tuple(w.shape)}")
-    if _route(x):
+    if use_kernels and _route(x):
         # a decode step calls this some hundred times: no operation that
         # would not change the operands
         x3 = x.view(C, -1, D) if x.is_contiguous() else \

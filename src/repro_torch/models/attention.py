@@ -30,11 +30,13 @@ class Attention(nn.Module):
             self.q_norm = param(init.full(1.0, (C, hd), torch.float32))
             self.k_norm = param(init.full(1.0, (C, hd), torch.float32))
 
-    def forward(self, x, positions, cache=None, *, compute_dtype):
+    def forward(self, x, positions, cache=None, *, compute_dtype,
+                use_kernels=True):
         """x [c, b, s, D]; positions [c, b, s].  cache None (causal over
         the s positions) or {"k", "v": [c, b, Hkv, S, hd], "len": int32
         [c, b]} for one token (s = 1), written in place at `len`.
-        Returns (out [c, b, s, D], the cache with `len` + 1 or None)."""
+        `use_kernels` false runs B5 and B7's plain versions.  Returns
+        (out [c, b, s, D], the cache with `len` + 1 or None)."""
         cfg, cd = self.cfg, compute_dtype
         c, b, s, _ = x.shape
         H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
@@ -49,8 +51,8 @@ class Attention(nn.Module):
         k = k.reshape(c, b, s, Hkv, hd)
         v = v.reshape(c, b, s, Hkv, hd)
         if cfg.qk_norm:
-            q = rmsnorm(q, self.q_norm, cfg.norm_eps).to(cd)
-            k = rmsnorm(k, self.k_norm, cfg.norm_eps).to(cd)
+            q = rmsnorm(q, self.q_norm, cfg.norm_eps, use_kernels).to(cd)
+            k = rmsnorm(k, self.k_norm, cfg.norm_eps, use_kernels).to(cd)
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
 
@@ -60,7 +62,8 @@ class Attention(nn.Module):
 
         new_cache = None
         if cache is None:
-            out = ops.attention(fold(q), fold(k), fold(v), causal=True)
+            out = ops.attention(fold(q), fold(k), fold(v), causal=True,
+                                use_kernels=use_kernels)
         else:
             if s != 1:
                 raise ValueError(f"the cached path takes one token a step, "
@@ -76,7 +79,7 @@ class Attention(nn.Module):
             out = ops.attention(
                 fold(q), kc.reshape(c * b, Hkv, S, hd).to(cd),
                 vc.reshape(c * b, Hkv, S, hd).to(cd), causal=True,
-                kv_len=(idx + 1).reshape(c * b))
+                kv_len=(idx + 1).reshape(c * b), use_kernels=use_kernels)
         out = out.reshape(c, b, H, s, hd).transpose(2, 3).reshape(
             c, b, s, H * hd)
         return torch.einsum("cbsh,chd->cbsd", out, self.wo.to(cd)), new_cache

@@ -1,14 +1,15 @@
 """Model configuration of the LM zoo, a copy of the reference's
 `ModelConfig` (same fields and defaults, `hd`, `pattern` and
-`param_count`), kept here so that the port imports nothing of `repro`.
+`param_count`, `active_param_count` and the shape properties), kept here
+so that the port imports nothing of `repro`.
 
 The per-layer structure is a `layer_pattern` string, one char per layer:
   'A' — attention + (MLP | MoE)   (MoE if n_experts > 0)
   'M' — Mamba-2 mixer block
 `shared_attn_every = k` applies one parameter-shared attention+MLP block
-after every k-th layer (Zamba2).  The port runs dense 'A' layers, 'M'
-layers and the shared block; the models raise `NotImplementedError` for
-MoE and the frontends.
+after every k-th layer (Zamba2).  An 'A' layer's MLP is a top-k MoE when
+`n_experts > 0`; a frontend other than "none" is a stub that projects
+precomputed embeddings.
 """
 from __future__ import annotations
 
@@ -74,6 +75,17 @@ class ModelConfig:
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def attention_free(self) -> bool:
+        return "A" not in self.pattern and self.shared_attn_every == 0
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for the reference's long_500k shape: no attention, a
+        Mamba-2 layer, or a sliding window."""
+        return self.attention_free or (
+            "M" in self.pattern) or self.sliding_window > 0
+
     def param_count(self) -> int:
         """Exact parameter count of this config (one chain)."""
         D, V, hd = self.d_model, self.vocab_size, self.hd
@@ -106,3 +118,13 @@ class ModelConfig:
             n += attn + mlp + 2 * D                      # one shared block
         n += D                                           # final norm
         return n
+
+    def active_param_count(self) -> int:
+        """Parameters a token reads (MoE: the top-k experts only), the N
+        of 6·N·tokens."""
+        if not self.is_moe:
+            return self.param_count()
+        full_moe = self.n_experts * 3 * self.d_model * self.moe_d_ff
+        act_moe = self.moe_top_k * 3 * self.d_model * self.moe_d_ff
+        return self.param_count() - self.pattern.count("A") * (
+            full_moe - act_moe)

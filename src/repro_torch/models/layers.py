@@ -14,11 +14,14 @@ class Init:
     """Where a model's tensors come from: drawn on `generator` (weights
     Normal(0, 1/fan_in), as the reference's `dense_init`; norms ones,
     biases zeros) and moved to `device`, or, with no generator, left
-    empty for a loader to fill (`convert.lm_params_from_numpy`)."""
+    empty for a loader to fill (`convert.lm_params_from_numpy`).
+    `trainable` makes the model's weights require gradients; a serving
+    model's do not."""
 
-    def __init__(self, device, generator=None):
+    def __init__(self, device, generator=None, *, trainable=False):
         self.device = torch.device(device)
         self.generator = generator
+        self.trainable = trainable
 
     def dense(self, fan_in, shape, dtype):
         if self.generator is None:
@@ -32,15 +35,15 @@ class Init:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A weight: serving only, so no gradient (training, with the backward
-    of the attention kernel, is a later ROADMAP item)."""
+    """A weight, created without a gradient; a model built from a
+    trainable `Init` turns gradients on for all of its weights."""
     return nn.Parameter(t, requires_grad=False)
 
 
-def rmsnorm(x, w, eps):
+def rmsnorm(x, w, eps, use_kernels=True):
     """x [c, ..., D]; w [c, D] scales chain c's rows (kernel B7 on the
-    card)."""
-    return ops.rmsnorm(x, w, eps=eps)
+    card unless `use_kernels` is false)."""
+    return ops.rmsnorm(x, w, eps=eps, use_kernels=use_kernels)
 
 
 def rope(x, positions, theta):
@@ -83,3 +86,16 @@ def embed(table, tokens, compute_dtype):
 def unembed(table, x, compute_dtype):
     """Tied output projection: x [c, b, s, D] against table [c, V, D]."""
     return torch.einsum("cbsd,cvd->cbsv", x, table.to(compute_dtype))
+
+
+def cross_entropy(logits, targets, z_weight: float = 0.0):
+    """Per-chain mean cross-entropy in float32: logits [c, b, s, V],
+    targets [c, b, s] → loss [c], with the optional z-loss z_weight ·
+    logsumexp² (the reference's `cross_entropy`)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    ce = lse - gold
+    if z_weight:
+        ce = ce + z_weight * lse.square()
+    return ce.mean(dim=(1, 2))

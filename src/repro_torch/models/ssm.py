@@ -46,10 +46,11 @@ class Mamba(nn.Module):
         self.out_norm = param(init.full(1.0, (C, di), torch.float32))
         self.out_proj = param(init.dense(di, (C, di, D), dtype))
 
-    def forward(self, x, cache=None, *, compute_dtype):
+    def forward(self, x, cache=None, *, compute_dtype, use_kernels=True):
         """x [c, b, s, D].  cache None (the scan over the s positions) or
-        `init_ssm_cache`'s dict for one token (s = 1).  Returns (out
-        [c, b, s, D], the next cache or None)."""
+        `init_ssm_cache`'s dict for one token (s = 1).  `use_kernels`
+        false runs B6 and B7's plain versions.  Returns (out [c, b, s, D],
+        the next cache or None)."""
         cfg, cd = self.cfg, compute_dtype
         c, b, s, _ = x.shape
         di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
@@ -68,7 +69,8 @@ class Mamba(nn.Module):
             xs = _causal_conv(xs, conv_x, b_x)
             bc = _causal_conv(bc, conv_bc, b_bc)
             y = ops.ssd(xs.reshape(c, b, s, H, P), dt, A,
-                        bc[..., :N].float(), bc[..., N:].float())
+                        bc[..., :N].float(), bc[..., N:].float(),
+                        use_kernels=use_kernels)
             y = y.reshape(c, b, s, di).to(cd)
         else:
             if s != 1:
@@ -89,7 +91,7 @@ class Mamba(nn.Module):
 
         # the gated RMSNorm, mamba2's norm(y * silu(z))
         y = rmsnorm(y * F.silu(z.float()).to(cd), self.out_norm,
-                    cfg.norm_eps).to(cd)
+                    cfg.norm_eps, use_kernels).to(cd)
         return torch.einsum("cbsi,cid->cbsd", y, self.out_proj.to(cd)), \
             new_cache
 

@@ -2,8 +2,10 @@
 level, the counterpart of the reference's `examples/serve_ensemble.py`.
 
 n_chains replicas of one architecture of the port's registry (dense,
-Mamba-2 such as mamba2-1.3b, or the zamba2-2.7b hybrid; random weights
-from --seed) decode a batch of random prompts greedily; at every step the
+MoE such as phi3.5-moe-42b-a6.6b, Mamba-2 such as mamba2-1.3b, the
+zamba2-2.7b hybrid, or a stub frontend's internvl2-2b or musicgen-medium;
+random weights from --seed) decode a batch of random prompts greedily; at
+every step the
 chains' next-token distributions are combined by Simple Average (Eq. 7),
 Weighted Average (Eq. 9, weights the inverse of each chain's mean
 next-token loss on the prompts, from one full forward pass over them) or
@@ -17,8 +19,14 @@ not at all (the first chain).
 Prints one JSON object: the generated tokens, the prefill time by decode
 steps (as the engine primes its cache) and by one fused forward pass over
 the prompts (`last_token_only`), the time per decode step and the
-generated tokens per second.  On the card the times come from CUDA
-events, on the CPU from the host clock.
+generated tokens per second; for MoE, the share of (token, choice) slots
+the fused prefill drops at the experts' capacity.  On the card the times
+come from CUDA events, on the CPU from the host clock.
+
+A frontend architecture's fused prefill (and the chain weights' forward
+pass) takes random embeddings drawn from --seed (vision: [C, b,
+n_patches, D] patches prepended; audio: [C, b, s, D] frames added); its
+decode steps get tokens only, as the reference's engine's do.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from torch.nn import functional as F
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device
 from repro_torch.models import init_params
+from repro_torch.models.moe import moe_drops
 from repro_torch.serving import GenerationConfig, ServingEngine
 from repro_torch.timing import PhaseTimer
 
@@ -53,11 +62,23 @@ def make_prompts(vocab_size, slots, prompt_len, seed, device):
                          dtype=torch.int32).to(device)
 
 
-def inverse_loss_weights(model, prompts, dtype):
+def make_embeds(cfg, chains, slots, prompt_len, seed, device):
+    """A frontend's random precomputed embeddings (a CPU generator seeded
+    from `seed`), standard normal: vision [chains, slots, n_patches, D],
+    audio [chains, slots, prompt_len, D]; None without a frontend."""
+    if cfg.frontend == "none":
+        return None
+    n = cfg.n_patches if cfg.frontend == "vision" else prompt_len
+    g = torch.Generator().manual_seed(seed + 2)
+    return torch.randn((chains, slots, n, cfg.d_model), generator=g).to(
+        device)
+
+
+def inverse_loss_weights(model, prompts, dtype, embeds=None):
     """Eq. 9's chain weights: the inverse of each chain's mean next-token
     cross-entropy on the prompts."""
     toks = prompts[None].expand((model.n_chains,) + tuple(prompts.shape))
-    logits = model(toks, compute_dtype=dtype)[:, :, :-1]
+    logits = model(toks, embeds, compute_dtype=dtype)[:, :, :-1]
     target = toks[:, :, 1:].long()
     loss = torch.stack([
         F.cross_entropy(logits[c].reshape(-1, logits.shape[-1]).float(),
@@ -73,7 +94,9 @@ def serve(args) -> dict:
                         dtype=dtype, device=dev, seed=args.seed)
     prompts = make_prompts(model.cfg.vocab_size, args.slots,
                            args.prompt_len, args.seed, dev)
-    weights = (inverse_loss_weights(model, prompts, dtype)
+    embeds = make_embeds(model.cfg, args.chains, args.slots,
+                         args.prompt_len, args.seed, dev)
+    weights = (inverse_loss_weights(model, prompts, dtype, embeds)
                if args.combine == "weighted" else None)
     engine = ServingEngine(
         model, batch_slots=args.slots,
@@ -84,9 +107,10 @@ def serve(args) -> dict:
     toks = prompts[None].expand((args.chains,) + tuple(prompts.shape))
 
     def fused_prefill():
-        return model(toks, compute_dtype=dtype, last_token_only=True)
+        return model(toks, embeds, compute_dtype=dtype, last_token_only=True)
 
-    fused_prefill()                      # warm-up: builds the kernels
+    with moe_drops(model) as drops:
+        fused_prefill()                  # warm-up: builds the kernels
     timer = PhaseTimer(dev)
     out = engine.generate(prompts, timer=timer)
     with timer("fused_prefill"):
@@ -100,7 +124,8 @@ def serve(args) -> dict:
             "tokens": out.tolist(), "prefill_ms": ms["prefill"],
             "fused_prefill_ms": ms["fused_prefill"],
             "decode_ms_per_step": ms["decode"] / steps,
-            "tokens_per_s": args.slots * steps / (ms["decode"] / 1e3)}
+            "tokens_per_s": args.slots * steps / (ms["decode"] / 1e3),
+            "moe_drop_share": sum(drops) / len(drops) if drops else None}
 
 
 def main(argv=None) -> dict:

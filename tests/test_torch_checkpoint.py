@@ -25,6 +25,7 @@ from repro_torch.checkpoint import (AsyncCheckpointManager, CheckpointManager,
                                     save_checkpoint, sweep_stale)
 from repro_torch.core.types import GibbsState
 from repro_torch.testing import mislabel_manifest, truncate_chain_file
+from repro_torch.tree import leaves_with_paths, map_with_paths
 
 
 def make_state(seed, chains=4, d=8):
@@ -36,7 +37,7 @@ def make_state(seed, chains=4, d=8):
 
 
 def _leaves(tree):
-    return [x for _, x in store._leaves(tree)]
+    return [x for _, x in leaves_with_paths(tree)]
 
 
 def trees_equal(a, b):
@@ -46,7 +47,7 @@ def trees_equal(a, b):
 
 
 def chain(tree, i):
-    return store._map(lambda _, x: x[i], tree)
+    return map_with_paths(lambda _, x: x[i], tree)
 
 
 def test_save_restore_roundtrip(tmp_path):
@@ -82,17 +83,17 @@ def test_elastic_restore_to_a_prefix_and_an_extension(tmp_path):
     small = make_state(3, chains=2)
     restored, info = restore_elastic(str(tmp_path), 10, small, lambda i: None)
     assert info["restored_chains"] == [0, 1]
-    assert trees_equal(store._map(lambda _, x: x[:2], state), restored)
+    assert trees_equal(map_with_paths(lambda _, x: x[:2], state), restored)
     big = make_state(4, chains=6)
     fresh = make_state(5, chains=1)
     restored, info = restore_elastic(
         str(tmp_path), 10, big,
-        lambda i: store._map(lambda _, x: x[0] + i, fresh))
+        lambda i: map_with_paths(lambda _, x: x[0] + i, fresh))
     assert info["restored_chains"] == [0, 1, 2, 3]
-    assert trees_equal(store._map(lambda _, x: x[:4], state),
-                       store._map(lambda _, x: x[:4], restored))
+    assert trees_equal(map_with_paths(lambda _, x: x[:4], state),
+                       map_with_paths(lambda _, x: x[:4], restored))
     assert trees_equal(chain(restored, 5),
-                       store._map(lambda _, x: x[0] + 5, fresh))
+                       map_with_paths(lambda _, x: x[0] + 5, fresh))
 
 
 @pytest.mark.parametrize("damage", ["corrupt", "truncate"])
@@ -107,7 +108,7 @@ def test_a_damaged_chain_file_is_isolated(tmp_path, damage):
     else:
         truncate_chain_file(str(tmp_path), 20, 2)
     fresh = make_state(7, chains=1)
-    init_fn = lambda i: store._map(lambda _, x: x[0] * 0 - 1, fresh)
+    init_fn = lambda i: map_with_paths(lambda _, x: x[0] * 0 - 1, fresh)
     restored, info = restore_elastic(str(tmp_path), 20, state, init_fn)
     assert info["restored_chains"] == [0, 1, 3]
     for i in (0, 1, 3):

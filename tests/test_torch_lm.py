@@ -27,7 +27,6 @@ from repro.serving import GenerationConfig as JGenerationConfig
 from repro.serving import ServingEngine as JServingEngine
 from repro_torch import configs
 from repro_torch.convert import lm_params_from_numpy
-from repro_torch.models import check_supported
 from repro_torch.serving import GenerationConfig, ServingEngine, sample_token
 
 LOGIT_TOL = 5e-5
@@ -88,24 +87,27 @@ def test_config_tables_copy_the_reference(name):
         port = configs.get_arch(name, smoke=smoke)
         ref = jconfigs.get_arch(name, smoke=smoke)
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-        assert (port.hd, port.pattern, port.param_count()) == (
-            ref.hd, ref.pattern, ref.param_count())
+        assert (port.hd, port.pattern, port.param_count(),
+                port.active_param_count(), port.attention_free,
+                port.sub_quadratic) == (
+            ref.hd, ref.pattern, ref.param_count(),
+            ref.active_param_count(), ref.attention_free, ref.sub_quadratic)
+    assert configs.RUNS[name] == jconfigs.RUNS[name]
 
 
 def test_unported_archs_raise():
-    for name in configs.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match="item 15"):
-            configs.get_arch(name)
-    moe = dataclasses.replace(configs.SMOKES["qwen3-1.7b"], n_experts=4)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        check_supported(moe)
-    vision = dataclasses.replace(configs.SMOKES["qwen3-1.7b"],
-                                 frontend="vision")
-    with pytest.raises(NotImplementedError, match="vision frontend"):
-        check_supported(vision)
-    check_supported(configs.SMOKES["zamba2-2.7b"])     # SSM + shared block
+    """Every architecture of the reference's registry is in the port's,
+    full and smoke; an unknown name raises KeyError."""
+    assert sorted(configs.ARCHS) == sorted(jconfigs.ARCHS)
+    assert sorted(configs.SMOKES) == sorted(jconfigs.SMOKES)
+    for name in jconfigs.ARCHS:
+        assert configs.get_arch(name).name == name
+        assert configs.get_arch(name, smoke=True).n_layers <= 6
+    assert not hasattr(configs, "NOT_PORTED")
     with pytest.raises(KeyError):
         configs.get_arch("no-such-arch")
+    with pytest.raises(KeyError):
+        configs.get_arch("no-such-arch", smoke=True)
 
 
 # ------------------------------------------------------------- models
