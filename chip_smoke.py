@@ -269,6 +269,24 @@ Phases, one JSON line each:
                  and accum_steps=2 within 1e-4 of one batch
   (each of the last four frees the one before it and reports its seconds
   and peak memory)
+  sharded        the multi-device half on this card, under a world-1 NCCL
+                 group and `launch.mesh.make_host_mesh` (1 × 1): (a)
+                 qwen3-1.7b at full width and depth, bf16, lm_serve's
+                 traffic (4 chains, 8 slots, a 200-token prompt primed on
+                 plain tensors by the kernels), then 8 decode steps on
+                 the plain route with weights and cache as DTensors placed by
+                 `launch.sharding`'s rules, logits bit-equal to the same
+                 steps on plain tensors, 0 collectives, ms a step of both;
+                 (b) one training step at TRAIN_SHAPE on DTensors: loss,
+                 per-chain gradient norm and every updated weight
+                 bit-equal to the plain step, 0 collectives; (c) the
+                 dry-run (`launch.dryrun`, fake tensors) of (b)'s cell and
+                 of decode_32k cut to 1 chain and 8 slots (a 32,768-token
+                 cache), each held to one real step: FLOPs equal to
+                 `FlopCounterMode`'s, argument bytes equal to the real
+                 tensors', the predicted peak within SHARDED_PEAK_TOL of
+                 `max_memory_allocated`, the roofline terms beside the
+                 measured ms; no kernel launched (SHARDED_BUDGET_S)
 
 then the kernels line, the card line from nvidia-smi, and last
 {"ok": true, "device": {...}}.
@@ -396,6 +414,13 @@ ZOO_SERVE = (("moe_serve", "phi3.5-moe-42b-a6.6b", 4, 4, 1, 2),
 # lm_train at full width and depth: chains, batch rows and tokens a row
 # per chain, steps (the first a warm-up)
 TRAIN_SHAPE = (2, 2, 128, 4)
+# the sharded phase: serving (chains, slots, prompt, decode steps), the
+# decode_32k cell cut to one card (chains, slots, cache), the dry-run's
+# peak against the card's, and the phase's budget in seconds
+SHARDED_SERVE = (4, 8, 200, 8)
+SHARDED_DECODE = (1, 8, 32768)
+SHARDED_PEAK_TOL = 0.10
+SHARDED_BUDGET_S = 90.0
 
 # B6's rows (label, C, b, s, H, P, N, chunk, against the oracle too, A·dt
 # scale): mamba2-1.3b's fused prefill (4 chains × 8 slots, 200 and 512
@@ -1406,7 +1431,7 @@ def lm_train_phase(seed, dev, smi, event_ms):
     state = init_opt_state(model.param_tree(), opt)
     step_fn = make_train_step(cfg, DistConfig(
         n_chains=C, compute_dtype="float32", use_kernels=False,
-        remat=False), opt)
+        remat=False, opt_dtype="bfloat16"), opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -1478,6 +1503,264 @@ def lm_train_phase(seed, dev, smi, event_ms):
     check(row["smoke_restart_equal"], f"lm_train: restart differs {row}")
     check(acc_err <= 1e-4 and loss_err <= 1e-4,
           f"lm_train: accumulation differs {row}")
+
+
+def sharded_serve(cfg, seed, dev, mesh, event_ms):
+    """(a): the plain decode step against the sharded one, step by step
+    from the same primed cache."""
+    import torch
+    from repro_torch.launch.collectives import count_collectives
+    from repro_torch.launch.sharding import (DistConfig, batch_specs,
+                                             cache_specs, shard_model,
+                                             shard_tree)
+    from repro_torch.launch.steps import make_decode_step
+    from repro_torch.models import init_params
+
+    C, slots, P, steps = SHARDED_SERVE
+    dist = DistConfig(n_chains=C, compute_dtype="bfloat16")
+
+    def model():
+        return init_params(cfg, C, torch.bfloat16, device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed))
+    plain = model()
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    n = P + steps + 2                  # room for the timed steps
+    tok = torch.randint(0, cfg.vocab_size, (1, slots, n),
+                        dtype=torch.int32, device=dev, generator=g)
+    tok = tok.expand(C, -1, -1).contiguous()     # every chain, every slot
+    plain_step = make_decode_step(cfg, dist)
+    # the prompt primes the cache on the kernel route (the steps compared
+    # start from one primed cache, so its route does not matter)
+    prime = make_decode_step(cfg, DistConfig(n_chains=C,
+                                             compute_dtype="bfloat16",
+                                             use_kernels=True))
+    t0 = time.perf_counter()
+    cache = plain.init_cache(slots, n, torch.bfloat16)
+    for t in range(P):
+        _, cache = prime(plain, cache, {"tokens": tok[:, :, t:t + 1]})
+    torch.cuda.synchronize()
+    prime_s = time.perf_counter() - t0
+    reset_launches()
+    sharded, _ = shard_model(model(), mesh, dist)
+    scache = shard_tree({k: ([{n: t.clone() for n, t in lc.items()}
+                              for lc in v] if isinstance(v, list)
+                             else v.clone()) for k, v in cache.items()},
+                        cache_specs(cache, mesh, dist), mesh)
+    sharded_step = make_decode_step(cfg, dist, mesh=mesh)
+    state = {"cache": cache, "scache": scache}
+
+    def step(t, sharded_too=True):
+        tb = {"tokens": tok[:, :, t:t + 1]}
+        plain_logits, state["cache"] = plain_step(plain, state["cache"], tb)
+        if not sharded_too:
+            return plain_logits, None
+        stb = shard_tree(tb, batch_specs(tb, mesh, dist,
+                                         replicated_serve=True), mesh)
+        logits, state["scache"] = sharded_step(sharded, state["scache"], stb)
+        return plain_logits, logits
+
+    equal = []
+    with count_collectives(functional=True) as stats:  # compared, counted
+        for t in range(P, P + steps):
+            plain_logits, logits = step(t)
+            equal.append(bool(torch.equal(plain_logits,
+                                          logits.full_tensor())))
+    # two more steps of each, timed with the counter off
+    t = P + steps
+    plain_ms = event_ms(lambda: step(t, False), 1, warm=False)
+    tb = {"tokens": tok[:, :, t:t + 1]}
+    stb = shard_tree(tb, batch_specs(tb, mesh, dist, replicated_serve=True),
+                     mesh)
+    sharded_ms = event_ms(lambda: sharded_step(sharded, state["scache"],
+                                               stb), 1, warm=False)
+    return {"chains": C, "slots": slots, "prompt": P, "steps": steps,
+            "prime_s": prime_s, "logits_bit_equal": equal,
+            "collectives": stats.count, "plain_ms": plain_ms,
+            "sharded_ms": sharded_ms}
+
+
+def sharded_train(cfg, seed, dev, mesh, dist, event_ms):
+    """(b): one training step of the same weights and batch on plain
+    tensors, then on DTensors; the plain step's updated weights wait on
+    the host (two models and their state do not fit the card)."""
+    import torch
+    from repro_torch.launch.collectives import count_collectives
+    from repro_torch.launch.sharding import (batch_specs, shard_model,
+                                             shard_tree)
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import make_lm_batch
+    from repro_torch.models import init_params
+    from repro_torch.optim import OptConfig, init_opt_state
+
+    C, B, T, _ = TRAIN_SHAPE
+    opt = OptConfig(lr=3e-4, warmup_steps=2, total_steps=4,
+                    opt_dtype=dist.opt_dtype)
+    batch = make_lm_batch(seed, 0, cfg, C, B, T, dev)
+    res = {}
+    for name in ("plain", "sharded"):
+        model = init_params(cfg, C, torch.float32, device=dev,
+                            trainable=True,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(seed))
+        b, m = batch, None
+        if name == "sharded":
+            model, _ = shard_model(model, mesh, dist)
+            b = shard_tree(batch, batch_specs(batch, mesh, dist), mesh)
+            m = mesh
+        state = init_opt_state(model.param_tree(), opt)
+        step = make_train_step(cfg, dist, opt, m)
+        out = {}
+
+        def run():
+            out["r"] = step(model, state, b)
+        with count_collectives(functional=True) as stats:
+            ms = event_ms(run, 1, warm=False)
+        metrics = out["r"][2]
+        full = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                for k, v in metrics.items()}
+        res[name] = {"ms": ms, "collectives": stats.count,
+                     "loss": full["loss"], "grad_norm": full["grad_norm"]}
+        if name == "plain":
+            weights = {n: p.detach().cpu() for n, p in
+                       model.named_parameters()}
+        else:
+            res["weights_equal"] = all(
+                torch.equal(p.detach().to_local(),
+                            weights[n].to(dev, non_blocking=True))
+                for n, p in model.named_parameters())
+        del model, state, out, metrics, b
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"chains": C, "batch": B, "seq": T,
+            "loss_bit_equal": bool(torch.equal(res["plain"]["loss"],
+                                               res["sharded"]["loss"])),
+            "grad_norm_bit_equal": bool(torch.equal(
+                res["plain"]["grad_norm"], res["sharded"]["grad_norm"])),
+            "weights_bit_equal": res["weights_equal"],
+            "loss": res["plain"]["loss"].tolist(),
+            "collectives": res["sharded"]["collectives"],
+            "plain_ms_counted": res["plain"]["ms"],
+            "sharded_ms_counted": res["sharded"]["ms"]}
+
+
+def dryrun_against_card(label, shape, chains, overrides, seed, dev, mesh,
+                        event_ms):
+    """(c): one cell's dry-run on fake tensors at the host mesh, then the
+    same cell built with real weights and one real step."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.cost import local_bytes
+
+    arch = "qwen3-1.7b"
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fake = dryrun.build_cell(arch, shape, False, chains, overrides,
+                                 mesh=mesh, device=dev)
+        meta = dryrun.analyze(fake)
+    del fake
+    dry_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    cell = dryrun.build_cell(arch, shape, False, chains, overrides,
+                             mesh=mesh, device=dev, seed=seed)
+    arguments = local_bytes(dryrun.arg_tensors(cell.args))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        out = cell.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    ms = event_ms(cell.run, 1, warm=False)
+    del cell
+    gc.collect()
+    torch.cuda.empty_cache()
+    want = meta["bytes_per_device"]
+    return {"cell": label, "shape": [shape.seq_len, shape.global_batch],
+            "chains": meta["n_chains"], "dryrun_s": dry_s,
+            "flops": meta["hlo_flops"],
+            "flop_counter_flops": counter.get_total_flops(),
+            "arguments": want["arguments"], "card_arguments": arguments,
+            "peak": want["peak"], "card_peak": peak,
+            "peak_err": (want["peak"] - peak) / peak,
+            "hbm_bytes": meta["hlo_bytes"],
+            "collective_bytes": meta["collective_bytes"],
+            "t_compute_s": meta["t_compute_s"],
+            "t_memory_s": meta["t_memory_s"],
+            "t_collective_s": meta["t_collective_s"],
+            "dominant": meta["dominant"], "measured_ms": ms}
+
+
+def sharded_phase(seed, dev, smi, event_ms):
+    """The `sharded` phase (see the module's docstring)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import DistConfig
+    from repro_torch.launch.slda_parallel import init_group
+
+    t_phase = time.perf_counter()
+    cfg = get_arch("qwen3-1.7b")
+    C, B, T, _ = TRAIN_SHAPE
+    train_over = dict(compute_dtype="float32", opt_dtype="bfloat16",
+                      remat=False)
+    train_dist = DistConfig(n_chains=C, use_kernels=False, **train_over)
+    chains, slots, cache_len = SHARDED_DECODE
+    cells = (("train", ShapeSpec("train_smoke", T, C * B, "train"), C,
+              train_over),
+             ("decode_32k", ShapeSpec("decode_32k", cache_len, slots,
+                                      "decode"), chains, None))
+    reset_launches()
+    with tempfile.TemporaryDirectory(prefix="rendezvous_") as tmp:
+        init_group("nccl", 0, 1, f"file://{tmp}/store", RANKS_TIMEOUT_S)
+        try:
+            mesh = make_host_mesh("cuda")
+            t0 = time.perf_counter()
+            serve = sharded_serve(cfg, seed, dev, mesh, event_ms)
+            serve["seconds"] = time.perf_counter() - t0
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            train = sharded_train(cfg, seed, dev, mesh, train_dist, event_ms)
+            train["seconds"] = time.perf_counter() - t0
+            held = []
+            for label, shape, n, over in cells:
+                t0 = time.perf_counter()
+                held.append(dryrun_against_card(label, shape, n, over, seed,
+                                                dev, mesh, event_ms))
+                held[-1]["seconds"] = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    launched = read_launches()
+    seconds = time.perf_counter() - t_phase
+    row = {"phase": "sharded", "card": smi, "arch": cfg.name,
+           "mesh": [1, 1], "serve": serve, "train": train, "dryrun": held,
+           "launches": launched, "seconds": seconds}
+    emit(row)
+    check(all(serve["logits_bit_equal"]) and serve["collectives"] == 0,
+          "sharded: serving not bit-equal to plain tensors, or collectives")
+    check(train["loss_bit_equal"] and train["grad_norm_bit_equal"]
+          and train["weights_bit_equal"] and train["collectives"] == 0,
+          "sharded: the training step not bit-equal, or collectives")
+    for h in held:
+        check(h["flops"] == h["flop_counter_flops"],
+              f"sharded: {h['cell']} dry-run FLOPs differ from the card's")
+        check(h["arguments"] == h["card_arguments"],
+              f"sharded: {h['cell']} argument bytes differ")
+        check(abs(h["peak_err"]) <= SHARDED_PEAK_TOL,
+              f"sharded: {h['cell']} predicted peak off by "
+              f"{h['peak_err']:.3f}")
+    check(not any(launched.values()), "sharded: a kernel was launched")
+    check(seconds <= SHARDED_BUDGET_S, f"sharded: took {seconds:.1f} s")
+    return row
 
 
 def supervised_phase(seed, dev, smi, train, test, runs, zero_counts,
@@ -3892,6 +4175,12 @@ def main() -> int:
     # ---- the rest of the LM zoo and training: moe_serve, arctic_serve,
     # frontend_serve, lm_train
     zoo_launches = zoo_phases(args.seed, dev, smi, event_ms, bound_ms)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the multi-device half at world 1: sharded serving and training
+    # bit-equal to plain tensors, the dry-run held to the card
+    sharded_phase(args.seed, dev, smi, event_ms)
 
     # each kernel's launches in the run of the path it carries; B4 runs
     # inside every sparse launch of B1–B3, at both settings; B5 (decode)

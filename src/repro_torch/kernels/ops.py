@@ -6,8 +6,10 @@ or the kernel raises; a CPU tensor goes to the plain version in `ref`.
 There is no other route and no fallback.  The LM ops (`attention`, `ssd`,
 `rmsnorm`) also take the caller's route, `use_kernels` (the reference's
 `use_pallas`): false runs the plain version on any device, which is how
-the LM trainer runs, under autograd (the kernels have no backward, and
-their wrappers refuse an operand that requires a gradient).
+the LM trainer and the sharded steps run, under autograd (the kernels
+have no backward, and their wrappers refuse an operand that requires a
+gradient); for attention that is the reference's `use_pallas=False`
+choice among the oracle and its blocked and triangular twins.
 The ops are the reference's `chain_axis=True` forms and keep its
 layouts: tables come in as `[M, T, W]` and are transposed to the
 row-gather `[M, W, T]` layout here, inside the op.  With
@@ -122,18 +124,35 @@ def slda_predict_sweeps(tokens, mask, z0, ndt0, phi, seeds, *, alpha,
                                           phi_t, **kw)
 
 
-def attention(q, k, v, *, causal=True, kv_len=None, use_kernels=True):
-    """Causal GQA attention, `ref.ref_attention`'s semantics at every
-    shape.  q [B, Hq, Sq, Dh]; k, v [B, Hkv, Sk, Dh]; kv_len optional
-    [B].  Nothing is padded: the kernel's grid covers the ragged last
-    block itself, so the causal diagonal stays at Sk - Sq of the true
-    shapes (the reference's padded Pallas route shifts it)."""
-    if use_kernels and _route(q):
-        if kv_len is not None:
-            kv_len = kv_len.to(torch.int32).contiguous()
-        return _flash.flash_attention_cuda(*_dense(q, k, v), causal=causal,
-                                           kv_len=kv_len)
-    return ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
+def attention(q, k, v, *, causal=True, kv_len=None, use_kernels=True,
+              causal_skip=False, block_q=0, probs_bf16=False):
+    """Causal GQA attention.  q [B, Hq, Sq, Dh]; k, v [B, Hkv, Sk, Dh];
+    kv_len optional [B].
+
+    `use_kernels` (the reference's `use_pallas`) runs B5: the kernel on a
+    CUDA tensor, its plain version `ref.ref_attention` on the CPU, its
+    semantics at every shape.  Nothing is padded: the kernel's grid
+    covers the ragged last block itself, so the causal diagonal stays at
+    Sk - Sq of the true shapes (the reference's padded Pallas route
+    shifts it).  False takes the reference's `use_pallas=False` route,
+    the trainer's and the sharded steps': a one-token query goes to
+    `ref.ref_attention`; with `causal_skip`, a square causal call goes to
+    the triangular twin; anything else to the blocked twin at `block_q`
+    (0 → 512), whose memory stays bounded at a 32k prompt."""
+    if use_kernels:
+        if _route(q):
+            if kv_len is not None:
+                kv_len = kv_len.to(torch.int32).contiguous()
+            return _flash.flash_attention_cuda(*_dense(q, k, v),
+                                               causal=causal, kv_len=kv_len)
+        return ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
+    if q.shape[2] == 1:
+        return ref.ref_attention(q, k, v, causal=causal, kv_len=kv_len)
+    if causal_skip and causal and kv_len is None and q.shape[2] == k.shape[2]:
+        return ref.attention_triangular(q, k, v)
+    return ref.attention_blocked(q, k, v, causal=causal, kv_len=kv_len,
+                                 block_q=block_q or 512,
+                                 probs_bf16=probs_bf16)
 
 
 def ssd(x, dt, A, B, C, *, chunk=64, use_kernels=True):

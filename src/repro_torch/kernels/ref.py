@@ -444,6 +444,91 @@ def ref_attention(q, k, v, *, causal=True, kv_len=None):
     return out.to(q.dtype)
 
 
+def attention_blocked(q, k, v, *, causal=True, kv_len=None, block_q=512,
+                      probs_bf16=False):
+    """The reference's `attention_blocked_jnp`: attention a block of
+    `block_q` queries at a time, each block's logits over the whole key
+    length, so that memory stays [block_q, Sk] a head.  Masked logits are
+    -1e30, as the reference's (a row with no valid key averages every
+    value instead of going NaN).  `probs_bf16` rounds the probabilities
+    and the values to bfloat16 for the second product, which accumulates
+    in float32 (the reference's `preferred_element_type`).  The last
+    block may be short: each query row is independent, so the reference's
+    padding changes no row.  q [B, Hq, Sq, Dh]; k, v [B, Hkv, Sk, Dh];
+    kv_len optional [B].  Returns q's dtype."""
+    B, Hq, Sq, Dh = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = Dh ** -0.5
+    bq = min(block_q, Sq)
+    kf = k.float()
+    vf = v.to(torch.bfloat16).float() if probs_bf16 else v.float()
+    ks = torch.arange(Sk, device=q.device)
+    valid = None if kv_len is None else \
+        ks[None, :] < kv_len.to(q.device)[:, None]             # [B, Sk]
+    outs = []
+    for q0 in range(0, Sq, bq):
+        n = min(bq, Sq - q0)
+        qb = q[:, :, q0:q0 + n].float().reshape(B, Hkv, g, n, Dh)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kf) * scale
+        mask = torch.ones((n, Sk), dtype=torch.bool, device=q.device)
+        if causal:
+            rows = torch.arange(n, device=q.device) + (q0 + Sk - Sq)
+            mask = ks[None, :] <= rows[:, None]
+        mask = mask[None, None, None]
+        if valid is not None:
+            mask = mask & valid[:, None, None, None, :]
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+        p = torch.softmax(s, dim=-1)
+        if probs_bf16:
+            p = p.to(torch.bfloat16).float()
+        o = torch.einsum("bhgqk,bhkd->bhgqd", p, vf)
+        outs.append(o.to(q.dtype).reshape(B, Hq, n, Dh))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
+def attention_triangular(q, k, v, *, block=512,
+                         probs_dtype=torch.bfloat16):
+    """The reference's `attention_triangular_jnp`: causal attention over
+    the lower-triangular (i, j <= i) block pairs with an online softmax,
+    about half the blocked form's work.  Probabilities are rounded to
+    `probs_dtype` (the reference's default bfloat16) and so is each
+    block's product with the values; the softmax statistics stay
+    float32.  Square causal calls only (Sq = Sk, no kv_len).  Returns
+    q's dtype."""
+    B, Hq, S, Dh = q.shape
+    Hkv = k.shape[1]
+    g = Hq // Hkv
+    scale = Dh ** -0.5
+    bq = min(block, S)
+    q5 = q.reshape(B, Hkv, g, S, Dh)
+    tri = torch.ones((bq, bq), dtype=torch.bool, device=q.device).tril()
+    outs = []
+    for i0 in range(0, S, bq):
+        n = min(bq, S - i0)
+        qb = q5[:, :, :, i0:i0 + n].float()
+        m = torch.full((B, Hkv, g, n, 1), -1e30, device=q.device)
+        l = torch.zeros((B, Hkv, g, n, 1), device=q.device)
+        acc = torch.zeros((B, Hkv, g, n, Dh), device=q.device)
+        for j0 in range(0, i0 + 1, bq):
+            nk = min(bq, S - j0)
+            kb = k[:, :, j0:j0 + nk].float()
+            vb = v[:, :, j0:j0 + nk].to(probs_dtype)
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb) * scale
+            if j0 == i0:
+                s = s.masked_fill(~tri[:n, :nk], -1e30)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new).to(probs_dtype)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.float().sum(-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bhgqk,bhkd->bhgqd", p,
+                                            vb).float()
+            m = m_new
+        outs.append((acc / l.clamp(min=1e-30)).to(q.dtype)
+                    .reshape(B, Hq, n, Dh))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=2)
+
+
 # -------------------------------------------------------------- rmsnorm
 
 def ref_rmsnorm(x, w, eps=1e-6):

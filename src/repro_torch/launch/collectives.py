@@ -16,6 +16,15 @@ tensor; `barrier` nothing.  A collective that calls another one (a
 deprecated alias, an object gather's size exchange) counts once, as the
 one called first.  The `*_object` collectives are not wrapped: the tensor
 collectives they make are counted.
+
+DTensor reaches no function of `torch.distributed`: it calls the
+functional collectives (`torch.ops._c10d_functional.*`) at dispatch
+level.  `count_collectives(functional=True)` also counts those, in the
+thread that opened it (and the autograd engine's, which take its
+dispatch modes), by the same payload rules from the output and the
+group: kinds `all_reduce`, `all_gather_into_tensor`,
+`reduce_scatter_tensor`, `all_to_all_single`.  It is a dispatch mode,
+which every operation in the block then passes: off by default.
 """
 from __future__ import annotations
 
@@ -27,6 +36,7 @@ import threading
 import torch
 import torch.distributed as dist
 import torch.distributed.distributed_c10d as c10d
+from torch.utils._python_dispatch import TorchDispatchMode
 
 
 def _nbytes(x) -> int:
@@ -148,16 +158,56 @@ class _Patch:
 
 _PATCH = _Patch()
 
+def _functional_ops() -> dict:
+    """{op overload: kind} of the functional collectives in this build
+    (`cost`'s table, each kind named by its op)."""
+    from .cost import _FUNCOL
+    table = {}
+    for ns in ("_c10d_functional", "_c10d_functional_autograd"):
+        for name in _FUNCOL:
+            try:
+                table[getattr(getattr(torch.ops, ns), name).default] = name
+            except (AttributeError, RuntimeError):
+                pass
+    return table
+
+
+class _FunctionalCounter(TorchDispatchMode):
+    """Counts the functional collectives dispatched under it (a DTensor
+    operation is first split into local ones by DTensor)."""
+
+    def __init__(self, stats: CollectiveStats):
+        super().__init__()
+        self.stats = stats
+        self.ops = _functional_ops()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+        from .cost import _FUNCOL, _PAYLOAD, _group_ranks, _nbytes, _tensors
+        kwargs = kwargs or {}
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        out = func(*args, **kwargs)
+        kind = self.ops.get(func)
+        if kind is not None:
+            group = len(_group_ranks(list(args) + list(kwargs.values())))
+            self.stats.add(kind, _PAYLOAD[_FUNCOL[kind]](
+                _nbytes(_tensors(out)), group))
+        return out
+
 
 @contextlib.contextmanager
-def count_collectives():
+def count_collectives(functional: bool = False):
     """`with count_collectives() as stats:` counts every collective of
     `torch.distributed` called in the block, from any thread, into
     `stats` (a `CollectiveStats`).  Counters nest: each open one counts
-    every call."""
+    every call.  `functional` also counts DTensor's functional
+    collectives (see the module's docstring)."""
     stats = CollectiveStats()
     _PATCH.open(stats)
     try:
-        yield stats
+        with (_FunctionalCounter(stats) if functional
+              else contextlib.nullcontext()):
+            yield stats
     finally:
         _PATCH.close(stats)

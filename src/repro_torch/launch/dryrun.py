@@ -17,13 +17,43 @@ of the reference's Pallas backend, `backend_resolution` names the port's
 route: the CUDA kernels and their variants on the card, their plain
 versions on the CPU.  The corpus is drawn by the port's generator (the
 reference draws its own); a plan depends only on the lengths and the
-config, and a caller may hand in a corpus.  The LM-zoo dry run of the
-reference (meshes, HLO) has no counterpart here.
+config, and a caller may hand in a corpus.
+
+The LM half: every (arch × shape) cell on the production meshes,
+
+    python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
+    python -m repro_torch.launch.dryrun --all --both-meshes [--out DIR]
+    python -m repro_torch.launch.dryrun --arch A --shape S --multi-pod \
+        --chains 1          # the standard data-parallel baseline
+    python -m repro_torch.launch.dryrun --arch A --shape S \
+        --dist opt_causal_attention=1 --dist opt_attn_block_q=1024
+
+runs the cell's step once on fake tensors (`FakeTensorMode`) in a fake
+world of 256 or 512 ranks (`mesh.fake_world`): parameters, AdamW state,
+caches and batches are DTensors placed by `launch.sharding`'s rules at
+the arch's RUN settings (serving cells one chain), and `cost.StepCost`
+counts one device's matmul FLOPs, bytes, collectives and live memory as
+the step runs.  A placement that does not propagate, or a host read in
+the step, fails the cell.  `--mesh host` runs it on `make_host_mesh`
+instead (one card: (1, 1)).  `--dist FIELD=VALUE` sets a `DistConfig`
+field over the RUN settings (a §Perf switch, as the reference's
+`dist_overrides`, which `benchmarks/perf_hillclimb.py` passes; the
+artifact's name takes `--tag`).  The artifact has the reference's fields,
+with these differences: `compile_s` is `trace_s`, the time of the fake
+step; `xla_flops_raw`, `xla_bytes_raw`, `unknown_trip_loops` and
+`collective_bytes_static` have no counterpart (nothing is compiled, and
+loops run, so none is undercounted); `bytes_per_device.output` counts
+the step's new storages only (the port updates weights, moments and KV
+caches in place, where the reference's step returns them).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
+import os
+import time
+import traceback
 
 import torch
 
@@ -326,9 +356,286 @@ def slda_elastic_report(args):
     return report
 
 
+# ------------------------------------------------------------- LM cells
+
+POD_SIZE = 256
+
+
+@dataclasses.dataclass
+class Cell:
+    """One built dry-run cell: `run()` runs its step once; `args` are the
+    step's arguments (for their bytes)."""
+    run: object
+    args: tuple
+    meta: dict
+
+
+def _shape(shape):
+    from repro_torch.configs.shapes import SHAPES
+    return SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def cell_dist(arch, shape, multi_pod, chains_override=None,
+              dist_overrides=None, *, mesh_kind="production"):
+    """The cell's `DistConfig` at the arch's RUN settings: training
+    chains per mesh, one chain to serve, unless overridden."""
+    from repro_torch.configs import RUNS
+    from .sharding import DistConfig
+    run, shape = RUNS[arch], _shape(shape)
+    if chains_override is not None:
+        n_chains = chains_override
+    elif shape.kind == "train" and mesh_kind == "production":
+        n_chains = run["chains_multi" if multi_pod else "chains_single"]
+    else:
+        n_chains = 1
+    fields = dict(
+        n_chains=n_chains, fsdp=run["fsdp"],
+        accum_steps=run["accum_steps"] if shape.kind == "train" else 1,
+        param_dtype=run["param_dtype"], opt_dtype=run["opt_dtype"],
+        use_kernels=False)
+    return DistConfig(**{**fields, **(dist_overrides or {})})
+
+
+def build_cell(arch, shape, multi_pod=False, chains_override=None,
+               dist_overrides=None, *, mesh, cfg=None, device="cpu",
+               seed=None) -> Cell:
+    """Builds one cell on `mesh` inside a world that covers it (and, for
+    a dry-run, inside `FakeTensorMode`: every tensor is then fake).
+    `shape` is a name of `SHAPES` or a `ShapeSpec`; `cfg` replaces the
+    arch's config (a smoke config); `seed` draws real weights and tokens
+    (None leaves them empty, as a dry-run needs)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.shapes import input_specs
+    from repro_torch.models import init_params
+    from repro_torch.models.layers import Init
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import OptConfig, init_opt_state
+    from .sharding import (batch_specs, cache_specs, shard_model,
+                           shard_tree)
+    from .steps import (DTYPES, make_decode_step, make_prefill_step,
+                        make_train_step)
+    cfg = cfg or ARCHS[arch]
+    shape = _shape(shape)
+    dist = cell_dist(arch, shape, multi_pod, chains_override, dist_overrides,
+                     mesh_kind="production" if mesh.ndim == 3 or
+                     mesh.size() >= POD_SIZE else "host")
+    C, dev, train = dist.n_chains, torch.device(device), shape.kind == "train"
+    pdt = DTYPES[dist.param_dtype]
+    if seed is None:
+        model = Transformer(cfg, C, pdt, init=Init(dev, trainable=train))
+    else:
+        model = init_params(cfg, C, pdt, device=dev, trainable=train,
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(seed))
+    model, _ = shard_model(model, mesh, dist)
+
+    def draw(t):
+        if seed is None:
+            return torch.empty(t.shape, dtype=t.dtype, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        if t.dtype == torch.int32:
+            return torch.randint(0, cfg.vocab_size, t.shape, dtype=t.dtype,
+                                 device=dev, generator=g)
+        return torch.randn(t.shape, dtype=t.dtype, device=dev, generator=g)
+    batch = {k: draw(t) for k, t in input_specs(cfg, shape, C).items()}
+    batch = shard_tree(batch, batch_specs(batch, mesh, dist,
+                                          replicated_serve=not train), mesh)
+    if train:
+        opt = OptConfig(opt_dtype=dist.opt_dtype)
+        state = init_opt_state(model.param_tree(), opt)
+        step = make_train_step(cfg, dist, opt, mesh)
+        args = (model, state, batch)
+    elif shape.kind == "prefill":
+        step = make_prefill_step(cfg, dist, mesh)
+        args = (model, batch)
+    else:
+        cache = model.init_cache(shape.global_batch, shape.seq_len,
+                                 torch.bfloat16)
+        cache = shard_tree(cache, cache_specs(cache, mesh, dist), mesh)
+        step = make_decode_step(cfg, dist, "none", mesh)
+        args = (model, cache, batch)
+    meta = dict(arch=arch, shape=shape.name, kind=shape.kind,
+                multi_pod=multi_pod, n_chips=mesh.size(), n_chains=C,
+                mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                fsdp=dist.fsdp, accum=dist.accum_steps,
+                param_dtype=dist.param_dtype, opt_dtype=dist.opt_dtype,
+                compute_dtype=dist.compute_dtype,
+                seq_len=shape.seq_len, global_batch=shape.global_batch,
+                params=cfg.param_count(),
+                active_params=cfg.active_param_count())
+    return Cell(run=lambda: step(*args), args=args, meta=meta)
+
+
+def arg_tensors(args):
+    """The tensors of a step's arguments (a model's parameters, the
+    leaves of trees)."""
+    from repro_torch.tree import leaves_with_paths
+    out = []
+    for a in args:
+        if isinstance(a, torch.nn.Module):
+            out += list(a.parameters())
+        else:
+            out += [t for _, t in leaves_with_paths(a)
+                    if isinstance(t, torch.Tensor)]
+    return out
+
+
+def analyze(cell: Cell, *, pod_size=POD_SIZE, verbose=False) -> dict:
+    """Runs the cell's step once under `cost.StepCost` and returns its
+    meta with the reference's artifact fields (see the module's
+    docstring)."""
+    from .cost import StepCost, local_bytes, roofline_terms
+    meta = dict(cell.meta)
+    argv = arg_tensors(cell.args)
+    arguments = local_bytes(argv)
+    counter = StepCost(pod_size=pod_size, arguments=argv)
+    t0 = time.time()
+    with counter:
+        out = cell.run()
+    meta["trace_s"] = round(time.time() - t0, 1)
+    cost = counter.cost
+    # the outputs' storages that are not the arguments' (each counted once)
+    output = local_bytes(argv + arg_tensors([out])) - arguments
+    meta["bytes_per_device"] = {"arguments": arguments, "output": output,
+                                "temp": cost.peak_bytes,
+                                "peak": arguments + cost.peak_bytes}
+    meta["hlo_flops"] = cost.flops
+    meta["hlo_bytes"] = cost.hbm_bytes
+    meta["collective_bytes"] = cost.coll_bytes
+    meta["collective_bytes_cross_pod"] = cost.coll_cross_pod
+    meta["collective_count"] = cost.coll_count
+    meta["collective_by_kind"] = {k: float(v)
+                                  for k, v in cost.coll_by_kind.items()}
+    meta.update(roofline_terms(cost.flops, cost.hbm_bytes, cost.coll_bytes,
+                               meta["n_chips"]))
+    seq, gb = meta["seq_len"], meta["global_batch"]
+    toks = gb if meta["kind"] == "decode" else gb * seq
+    mult = 6 if meta["kind"] == "train" else 2
+    meta["model_flops"] = mult * meta["active_params"] * toks
+    meta["tokens_per_step"] = toks
+    meta["real_token_frac"] = 1.0       # LM batches here are dense
+    whole = cost.flops * meta["n_chips"]
+    meta["useful_flop_ratio"] = meta["model_flops"] / whole if whole else 0.0
+    if verbose:
+        print(json.dumps({k: v for k, v in meta.items()
+                          if k != "collective_by_kind"}, indent=1))
+    return meta
+
+
+def run_cell(arch, shape, multi_pod, out_dir=None, verbose=True,
+             chains_override=None, tag_suffix="", dist_overrides=None, *,
+             mesh_kind="production", smoke=False):
+    """One cell's dry-run on fake tensors in a fake world (production:
+    256 or 512 ranks; host: 1), its artifact written under `out_dir`."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import SMOKES
+    from .mesh import fake_world, make_host_mesh, make_production_mesh
+    n = 1 if mesh_kind == "host" else (512 if multi_pod else 256)
+    with fake_world(n):
+        mesh = (make_host_mesh("cpu") if mesh_kind == "host" else
+                make_production_mesh(multi_pod=multi_pod, device_type="cpu"))
+        with FakeTensorMode():
+            cell = build_cell(arch, shape, multi_pod, chains_override,
+                              dist_overrides, mesh=mesh,
+                              cfg=SMOKES[arch] if smoke else None)
+            meta = analyze(cell, verbose=verbose)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        name = shape if isinstance(shape, str) else shape.name
+        tag = (f"{arch}_{name}_{'multi' if multi_pod else 'single'}"
+               f"{tag_suffix}")
+        with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+            json.dump(meta, f, indent=1)
+    return meta
+
+
+def dist_overrides(pairs) -> dict:
+    """`FIELD=VALUE` strings as `DistConfig` fields, each value read as
+    its field's type (a bool from 0/1/true/false)."""
+    from .sharding import DistConfig
+    types = {f.name: type(f.default) for f in dataclasses.fields(DistConfig)}
+    out = {}
+    for pair in pairs or ():
+        name, sep, value = pair.partition("=")
+        if not sep or name not in types:
+            raise ValueError(f"--dist {pair!r}: not FIELD=VALUE of a "
+                             f"DistConfig field")
+        kind = types[name]
+        if kind is bool:
+            if value.lower() not in ("0", "1", "true", "false"):
+                raise ValueError(f"--dist {pair!r}: not a bool")
+            out[name] = value.lower() in ("1", "true")
+        else:
+            out[name] = kind(value)
+    return out
+
+
+def lm_main(args, ap):
+    """The LM half's CLI: each (arch × shape × mesh) cell in turn,
+    reported and continued past a failure; exits 1 if any failed."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.shapes import cells_for
+    if args.all:
+        archs = sorted(ARCHS)
+    elif args.arch:
+        archs = [args.arch]
+    else:
+        ap.error("--arch or --all required (or an --slda-* report)")
+    meshes = [False, True] if (args.both_meshes or args.all) else \
+        [args.multi_pod]
+    if args.mesh == "host":
+        meshes = [False]
+    try:
+        overrides = dist_overrides(args.dist)
+    except ValueError as e:
+        ap.error(str(e))
+    failures = []
+    for arch in archs:
+        shapes = [args.shape] if args.shape else cells_for(ARCHS[arch])
+        for shape in shapes:
+            for mp in meshes:
+                tag = f"{arch} × {shape} × " + (
+                    "host" if args.mesh == "host" else
+                    "2-pod" if mp else "1-pod")
+                try:
+                    t0 = time.time()
+                    run_cell(arch, shape, mp, args.out, verbose=False,
+                             chains_override=args.chains,
+                             tag_suffix=args.tag, mesh_kind=args.mesh,
+                             dist_overrides=overrides)
+                    print(f"PASS {tag}  ({time.time() - t0:.0f}s)",
+                          flush=True)
+                except Exception as e:  # noqa: BLE001 (report, go on)
+                    failures.append((tag, repr(e)))
+                    print(f"FAIL {tag}: {e}", flush=True)
+                    traceback.print_exc()
+    print(f"\n{len(failures)} failures")
+    for tag, err in failures:
+        print(" ", tag, err)
+    return 1 if failures else 0
+
+
 def parser() -> argparse.ArgumentParser:
-    """The reference's `--slda-*` options, and `--device`."""
+    """The reference's LM and `--slda-*` options, `--mesh` and
+    `--device`."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--chains", type=int, default=None,
+                    help="override the chain count (1 on the multi-pod "
+                         "mesh: the standard data-parallel baseline)")
+    ap.add_argument("--tag", default="", help="artifact filename suffix")
+    ap.add_argument("--dist", action="append", default=[],
+                    metavar="FIELD=VALUE",
+                    help="set a DistConfig field (a §Perf switch) over "
+                         "the RUN settings; repeatable")
+    ap.add_argument("--out", default="artifacts/dryrun")
+    ap.add_argument("--mesh", choices=("production", "host"),
+                    default="production",
+                    help="host: make_host_mesh, one rank (1, 1)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
     ap.add_argument("--slda-plan", action="store_true",
@@ -403,9 +710,9 @@ def main(argv=None):
         return slda_serve_report(args)
     if args.slda_elastic:
         return slda_elastic_report(args)
-    ap.error("one of --slda-plan, --slda-serve or --slda-elastic is "
-             "required (the LM-zoo dry run is not ported)")
+    return lm_main(args, ap)
 
 
 if __name__ == "__main__":
-    main()
+    rc = main()
+    raise SystemExit(rc if isinstance(rc, int) else 0)

@@ -8,6 +8,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.kernels import ops
+from .layout import PLAIN, placements
 
 
 class Init:
@@ -69,33 +70,85 @@ class MLP(nn.Module):
         self.w_up = param(init.dense(D, (C, D, d_ff), dtype))
         self.w_down = param(init.dense(d_ff, (C, d_ff, D), dtype))
 
-    def forward(self, x, compute_dtype):
-        g = torch.einsum("cbsd,cdf->cbsf", x, self.w_gate.to(compute_dtype))
-        u = torch.einsum("cbsd,cdf->cbsf", x, self.w_up.to(compute_dtype))
-        return torch.einsum("cbsf,cfd->cbsd", F.silu(g) * u,
-                            self.w_down.to(compute_dtype))
+    def forward(self, x, compute_dtype, layout=PLAIN):
+        cd, L = compute_dtype, layout
+        g = L.proj("cbsd,cdf->cbsf", x, self.w_gate, cd)
+        u = L.proj("cbsd,cdf->cbsf", x, self.w_up, cd)
+        return L.proj("cbsf,cfd->cbsd", F.silu(g) * u, self.w_down, cd)
 
 
-def embed(table, tokens, compute_dtype):
-    """table [c, V, D]; tokens [c, b, s] → [c, b, s, D], chain c's rows
-    gathered from its own table."""
+def _lookup(table, tokens):
     ci = torch.arange(tokens.shape[0], device=tokens.device)[:, None, None]
-    return table[ci, tokens.long()].to(compute_dtype)
+    return table[ci, tokens.long()]
 
 
-def unembed(table, x, compute_dtype):
+def embed(table, tokens, compute_dtype, layout=PLAIN):
+    """table [c, V, D]; tokens [c, b, s] → [c, b, s, D], chain c's rows
+    gathered from its own table.  Sharded, the lookup runs on each chain's
+    whole table (cast first, then gathered over `model` and the FSDP
+    axis, unless `opt_replicate_embed` left it whole)."""
+    L = layout
+    if not L.sharded:
+        return _lookup(table, tokens).to(compute_dtype)
+    return L.region(_lookup, (table.to(compute_dtype), tokens),
+                    (L.chain_only(3), L.act(3)), L.act(4))
+
+
+def unembed(table, x, compute_dtype, layout=PLAIN):
     """Tied output projection: x [c, b, s, D] against table [c, V, D]."""
-    return torch.einsum("cbsd,cvd->cbsv", x, table.to(compute_dtype))
+    return layout.proj("cbsd,cvd->cbsv", x, table, compute_dtype)
 
 
-def cross_entropy(logits, targets, z_weight: float = 0.0):
-    """Per-chain mean cross-entropy in float32: logits [c, b, s, V],
-    targets [c, b, s] → loss [c], with the optional z-loss z_weight ·
-    logsumexp² (the reference's `cross_entropy`)."""
+def _token_ce(logits, targets, z_weight):
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
     gold = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
     ce = lse - gold
     if z_weight:
         ce = ce + z_weight * lse.square()
+    return ce
+
+
+def cross_entropy(logits, targets, z_weight: float = 0.0, layout=PLAIN):
+    """Per-chain mean cross-entropy in float32: logits [c, b, s, V],
+    targets [c, b, s] → loss [c], with the optional z-loss z_weight ·
+    logsumexp² (the reference's `cross_entropy`).  Sharded, a vocabulary
+    that splits over `model` is reduced there shard by shard
+    (`_vocab_parallel_ce`), else each token's loss takes its whole row,
+    and the mean over the batch reduces over the data-parallel axes."""
+    L = layout
+    if L.msize > 1 and L.fits(logits.shape[-1]):
+        ce = _vocab_parallel_ce(logits, targets, z_weight, L)
+    else:
+        ce = L.region(lambda lg, t: _token_ce(lg, t, z_weight),
+                      (logits, targets), (L.act(4), L.act(3)), L.act(3))
     return ce.mean(dim=(1, 2))
+
+
+def _vocab_parallel_ce(logits, targets, z_weight, L):
+    """Each token's loss with the vocabulary split over `model`: the max
+    (all-reduced), and each shard's sum of exponentials and target logit
+    (picked by comparing the targets with the shard's own vocabulary
+    ids), summed over `model`.  No device holds a whole row of logits,
+    in the forward pass or the backward."""
+    from torch.distributed.tensor import distribute_tensor
+    lf = L.put(logits, L.act(4, 3))
+    mx = L.put(lf.detach().float().amax(-1, keepdim=True), L.act(4))
+    vid = distribute_tensor(torch.arange(logits.shape[-1],
+                                         device=logits.device),
+                            L.mesh, placements(("model",), L.mesh),
+                            src_data_rank=None)
+
+    def shard_terms(lf, mx, targets, vid):
+        lf = lf.float()
+        sumexp = (lf - mx).exp().sum(-1)
+        gold = (lf * (vid == targets.long()[..., None])).sum(-1)
+        return sumexp, gold
+    sumexp, gold = L.region(shard_terms, (lf, mx, targets, vid),
+                            (L.act(4, 3), L.act(4), L.act(3), ("model",)),
+                            [L.act(3), L.act(3)], partial=("model",))
+    lse = L.put(sumexp, L.act(3)).log() + mx[..., 0]
+    ce = lse - L.put(gold, L.act(3))
+    if z_weight:
+        ce = ce + z_weight * lse.square()
+    return ce

@@ -28,6 +28,7 @@ from torch.nn import functional as F
 
 from .config import ModelConfig
 from .layers import MLP, Init, param
+from .layout import PLAIN, spec_entry
 
 
 def capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -90,47 +91,76 @@ class MoE(nn.Module):
                       if cfg.moe_dense_d_ff else None)
         self.drops = None        # a list while `moe_drops` reports
 
-    def forward(self, x, compute_dtype):
+    def forward(self, x, compute_dtype, layout=PLAIN):
         """x [c, b, s, D] → (y [c, b, s, D], aux [c]).
 
         Every slot is written to (its expert, min(pos, C_e - 1)) by an
         add, a dropped slot adding zeros, as the reference's `.at[].add`:
         an assignment would let a dropped slot overwrite the kept token at
         C_e - 1.  The combine adds a token's K choices into zeros; with
-        K = 2 (every config) that sum is exact in either order."""
-        cfg, cd = self.cfg, compute_dtype
+        K = 2 (every config) that sum is exact in either order.
+
+        Sharded, the routing and the combine see all of a chain's tokens
+        (x is gathered over the data-parallel axes: the capacity is the
+        chain's, as in the reference), the experts run on the dispatch
+        buffer's slots split over the data-parallel axes, and its experts
+        split over `model` under `moe_ep` (the weights stay where they
+        are) or whole (the weights gathered over `model`)."""
+        cfg, cd, L = self.cfg, compute_dtype, layout
         c, b, s, D = x.shape
         E, K, T = cfg.n_experts, cfg.moe_top_k, b * s
         cap = capacity(T, cfg)
-        xt = x.reshape(c, T, D)
-        probs, gate, eidx = route(xt, self.router, K)
-        aux = switch_aux(probs, eidx)
-        order, sorted_e, pos, keep = slots(eidx, cap)
-        if self.drops is not None:
-            self.drops.append(1.0 - keep.float().mean())
-        tok = order // K                                   # each slot's token
-        ci = torch.arange(c, device=x.device)[:, None]
-        at = pos.clamp(max=cap - 1)
+        zero = torch.zeros((), dtype=cd, device=x.device)
 
-        upd = torch.where(keep[..., None], xt[ci, tok].to(cd),
-                          torch.zeros((), dtype=cd, device=x.device))
-        buf = torch.zeros((c, E, cap, D), dtype=cd, device=x.device)
-        buf = buf.index_put((ci, sorted_e, at), upd, accumulate=True)
+        def dispatch(x, router):
+            c = x.shape[0]
+            xt = x.reshape(c, T, D)
+            probs, gate, eidx = route(xt, router, K)
+            aux = switch_aux(probs, eidx)
+            order, sorted_e, pos, keep = slots(eidx, cap)
+            if self.drops is not None:
+                self.drops.append(1.0 - keep.float().mean())
+            tok = order // K                               # each slot's token
+            ci = torch.arange(c, device=x.device)[:, None]
+            at = pos.clamp(max=cap - 1)
+            upd = torch.where(keep[..., None], xt[ci, tok].to(cd), zero)
+            buf = torch.zeros((c, E, cap, D), dtype=cd, device=x.device)
+            buf = buf.index_put((ci, sorted_e, at), upd, accumulate=True)
+            sorted_gate = torch.gather(gate.reshape(c, T * K), 1, order)
+            return buf, aux, sorted_e, at, keep, tok, sorted_gate
 
-        g = torch.einsum("cekd,cedf->cekf", buf, self.w_gate.to(cd))
-        u = torch.einsum("cekd,cedf->cekf", buf, self.w_up.to(cd))
-        out_buf = torch.einsum("cekf,cefd->cekd", F.silu(g) * u,
-                               self.w_down.to(cd))
+        def experts(buf, wg, wu, wd):
+            g = torch.einsum("cekd,cedf->cekf", buf, wg)
+            u = torch.einsum("cekd,cedf->cekf", buf, wu)
+            return torch.einsum("cekf,cefd->cekd", F.silu(g) * u, wd)
 
-        sorted_gate = torch.gather(gate.reshape(c, T * K), 1, order)
-        vals = out_buf[ci, sorted_e, at]                   # [c, TK, D]
-        vals = torch.where(keep[..., None], vals,
-                           torch.zeros((), dtype=cd, device=x.device)) \
-            * sorted_gate[..., None]
-        y = torch.zeros((c, T, D), dtype=cd, device=x.device).index_put(
-            (ci, tok), vals.to(cd), accumulate=True).reshape(c, b, s, D)
+        def combine(out_buf, sorted_e, at, keep, tok, sorted_gate):
+            c = out_buf.shape[0]
+            ci = torch.arange(c, device=out_buf.device)[:, None]
+            vals = out_buf[ci, sorted_e, at]               # [c, TK, D]
+            vals = torch.where(keep[..., None], vals, zero) \
+                * sorted_gate[..., None]
+            return torch.zeros((c, T, D), dtype=cd,
+                               device=out_buf.device).index_put(
+                (ci, tok), vals.to(cd), accumulate=True).reshape(c, b, s, D)
+
+        whole = L.chain_only(4)
+        book = L.chain_only(2)
+        buf, aux, *rest = L.region(
+            dispatch, (x, self.router), (whole, L.chain_only(3)),
+            [whole, L.chain_only(1)] + [book] * 5)
+        w = [L.weight(t, cd) for t in (self.w_gate, self.w_up, self.w_down)]
+        ep = L.moe_ep and L.fits(E)
+        dp_cap = spec_entry(L.dp) if L.dp and L.fits(cap, L.dp) else None
+        slots_spec = (whole[0], "model" if ep else None, dp_cap, None)
+        w_spec = (whole[0], "model" if ep else None, None, None)
+        out_buf = L.region(experts, (buf, *w), (slots_spec, w_spec, w_spec,
+                                                 w_spec), slots_spec)
+        y = L.region(combine, (out_buf, *rest), (whole,) + (book,) * 5,
+                     whole)
+        y = L.put(y, L.act(4))
         if self.dense is not None:                         # Arctic residual
-            y = y + self.dense(x, cd)
+            y = y + self.dense(x, cd, L)
         return y, aux
 
 

@@ -15,6 +15,7 @@ from torch.nn import functional as F
 from repro_torch.kernels import ops
 from .config import ModelConfig
 from .layers import Init, param, rmsnorm
+from .layout import PLAIN
 
 
 def _causal_conv(u, w, b):
@@ -46,54 +47,77 @@ class Mamba(nn.Module):
         self.out_norm = param(init.full(1.0, (C, di), torch.float32))
         self.out_proj = param(init.dense(di, (C, di, D), dtype))
 
-    def forward(self, x, cache=None, *, compute_dtype, use_kernels=True):
+    def forward(self, x, cache=None, *, compute_dtype, use_kernels=True,
+                layout=PLAIN):
         """x [c, b, s, D].  cache None (the scan over the s positions) or
         `init_ssm_cache`'s dict for one token (s = 1).  `use_kernels`
-        false runs B6 and B7's plain versions.  Returns (out [c, b, s, D],
-        the next cache or None)."""
-        cfg, cd = self.cfg, compute_dtype
+        false runs B6 and B7's plain versions.  Sharded, the conv and the
+        scan run on each shard's heads (split over `model` when the heads
+        divide it, else gathered), with B and C, which every head reads,
+        gathered over `model`.  Returns (out [c, b, s, D], the next cache
+        or None)."""
+        cfg, cd, L = self.cfg, compute_dtype, layout
         c, b, s, _ = x.shape
-        di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-            cfg.ssm_head_dim
-        z = torch.einsum("cbsd,cdi->cbsi", x, self.wz.to(cd))
-        xs = torch.einsum("cbsd,cdi->cbsi", x, self.wx.to(cd))
-        bc = torch.einsum("cbsd,cdn->cbsn", x, self.wbc.to(cd))
-        dt = torch.einsum("cbsd,cdh->cbsh", x, self.wdt.to(cd))
+        N, H, P = cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+        z = L.proj("cbsd,cdi->cbsi", x, self.wz, cd)
+        xs = L.proj("cbsd,cdi->cbsi", x, self.wx, cd)
+        bc = L.proj("cbsd,cdn->cbsn", x, self.wbc, cd)
+        dt = L.proj("cbsd,cdh->cbsh", x, self.wdt, cd)
         dt = F.softplus(dt.float() + self.dt_bias[:, None, None, :])
         A = -torch.exp(self.A_log)                                # [c, H]
-        conv_x, conv_bc = self.conv_x.to(cd), self.conv_bc.to(cd)
-        b_x, b_bc = self.conv_b_x.to(cd), self.conv_b_bc.to(cd)
+        conv_x, conv_bc = L.weight(self.conv_x, cd), L.weight(self.conv_bc, cd)
+        b_x, b_bc = L.weight(self.conv_b_x, cd), L.weight(self.conv_b_bc, cd)
+        hm = "model" if L.fits(H) else None          # the heads' placement
+        ch = L.chain_only(1)[0]
+        heads4, whole4 = L.act(4, 3 if hm else None), L.act(4)
 
-        new_cache = None
-        if cache is None:
+        def scan(xs, bc, dt, A, conv_x, conv_bc, b_x, b_bc):
+            c, b = xs.shape[:2]
             xs = _causal_conv(xs, conv_x, b_x)
             bc = _causal_conv(bc, conv_bc, b_bc)
-            y = ops.ssd(xs.reshape(c, b, s, H, P), dt, A,
+            y = ops.ssd(xs.reshape(c, b, s, -1, P), dt, A,
                         bc[..., :N].float(), bc[..., N:].float(),
                         use_kernels=use_kernels)
-            y = y.reshape(c, b, s, di).to(cd)
-        else:
-            if s != 1:
-                raise ValueError(f"the cached path takes one token a step, "
-                                 f"got {s}")
-            hist_x = torch.cat([cache["conv_x"], xs], dim=2)
-            hist_bc = torch.cat([cache["conv_bc"], bc], dim=2)
+            return y.reshape(c, b, s, -1).to(cd)
+
+        def step(xs, bc, dt, A, conv_x, conv_bc, b_x, b_bc, cx, cbc, ssm):
+            c, b = xs.shape[:2]
+            hist_x = torch.cat([cx, xs], dim=2)
+            hist_bc = torch.cat([cbc, bc], dim=2)
             xs1 = F.silu(torch.einsum("cbki,cki->cbi", hist_x, conv_x)
                          + b_x[:, None])
             bc1 = F.silu(torch.einsum("cbkn,ckn->cbn", hist_bc, conv_bc)
                          + b_bc[:, None])
             ssm, y1 = ops.ssd_decode_step(
-                cache["ssm"], xs1.reshape(c, b, H, P).float(), dt[:, :, 0],
+                ssm, xs1.reshape(c, b, -1, P).float(), dt[:, :, 0],
                 A, bc1[..., :N].float(), bc1[..., N:].float())
-            y = y1.reshape(c, b, 1, di).to(cd)
-            new_cache = {"conv_x": hist_x[:, :, 1:],
-                         "conv_bc": hist_bc[:, :, 1:], "ssm": ssm}
+            return (y1.reshape(c, b, 1, -1).to(cd), hist_x[:, :, 1:],
+                    hist_bc[:, :, 1:], ssm)
+
+        args = (xs, bc, dt, A, conv_x, conv_bc, b_x, b_bc)
+        specs = (heads4, whole4, heads4, (ch, hm), (ch, None, hm),
+                 (ch, None, None), (ch, hm), (ch, None))
+        new_cache = None
+        if cache is None:
+            y = L.region(scan, args, specs, heads4)
+        else:
+            if s != 1:
+                raise ValueError(f"the cached path takes one token a step, "
+                                 f"got {s}")
+            ssm_spec = L.act(5, 2 if hm else None)
+            y, cx, cbc, ssm = L.region(
+                step, args + (cache["conv_x"], cache["conv_bc"],
+                              cache["ssm"]),
+                specs + (heads4, whole4, ssm_spec),
+                [heads4, heads4, whole4, ssm_spec])
+            new_cache = {"conv_x": L.put_like(cx, cache["conv_x"]),
+                         "conv_bc": L.put_like(cbc, cache["conv_bc"]),
+                         "ssm": L.put_like(ssm, cache["ssm"])}
 
         # the gated RMSNorm, mamba2's norm(y * silu(z))
         y = rmsnorm(y * F.silu(z.float()).to(cd), self.out_norm,
                     cfg.norm_eps, use_kernels).to(cd)
-        return torch.einsum("cbsi,cid->cbsd", y, self.out_proj.to(cd)), \
-            new_cache
+        return L.proj("cbsi,cid->cbsd", y, self.out_proj, cd), new_cache
 
 
 def init_ssm_cache(cfg: ModelConfig, n_chains, batch, dtype, device):

@@ -21,6 +21,7 @@ from repro_torch.device import resolve_device
 from .attention import Attention, init_kv_cache
 from .config import ModelConfig
 from .layers import MLP, Init, cross_entropy, embed, param, rmsnorm, unembed
+from .layout import PLAIN
 from .moe import MoE
 from .ssm import Mamba, init_ssm_cache
 
@@ -43,18 +44,18 @@ class Block(nn.Module):
             self.mlp = MLP(D, cfg.d_ff, n_chains, dtype, init)
 
     def forward(self, x, positions, cache=None, *, compute_dtype,
-                use_kernels=True):
+                use_kernels=True, layout=PLAIN):
         """Returns (x, the cache, the MoE's aux loss [c] or None)."""
         cd, uk = compute_dtype, use_kernels
         h, cache = self.attn(rmsnorm(x, self.norm1, self.eps, uk).to(cd),
                              positions, cache, compute_dtype=cd,
-                             use_kernels=uk)
+                             use_kernels=uk, layout=layout)
         x = x + h
         inner = rmsnorm(x, self.norm2, self.eps, uk).to(cd)
         if hasattr(self, "moe"):
-            h, aux = self.moe(inner, cd)
+            h, aux = self.moe(inner, cd, layout)
             return x + h, cache, aux
-        return x + self.mlp(inner, cd), cache, None
+        return x + self.mlp(inner, cd, layout), cache, None
 
 
 class MambaBlock(nn.Module):
@@ -68,12 +69,12 @@ class MambaBlock(nn.Module):
         self.mamba = Mamba(cfg, n_chains, dtype, init)
 
     def forward(self, x, positions, cache=None, *, compute_dtype,
-                use_kernels=True):
+                use_kernels=True, layout=PLAIN):
         """As `Block.forward`; the positions are not read."""
         h, cache = self.mamba(rmsnorm(x, self.norm1, self.eps, use_kernels)
                               .to(compute_dtype), cache,
                               compute_dtype=compute_dtype,
-                              use_kernels=use_kernels)
+                              use_kernels=use_kernels, layout=layout)
         return x + h, cache, None
 
 
@@ -124,21 +125,22 @@ class Transformer(nn.Module):
         return self.shared is not None and \
             (i + 1) % self.cfg.shared_attn_every == 0
 
-    def _logits(self, x, cd, use_kernels=True):
+    def _logits(self, x, cd, use_kernels=True, layout=PLAIN):
         x = rmsnorm(x, self.final_norm, self.cfg.norm_eps, use_kernels).to(cd)
         if self.lm_head is None:
-            return unembed(self.embed, x, cd)
-        return torch.einsum("cbsd,cdv->cbsv", x, self.lm_head.to(cd))
+            return unembed(self.embed, x, cd, layout)
+        return layout.proj("cbsd,cdv->cbsv", x, self.lm_head, cd)
 
-    def _project(self, embeds, cd):
+    def _project(self, embeds, cd, layout=PLAIN):
         """Precomputed embeddings [c, b, p, D] through the frontend's
         projection."""
-        return torch.einsum("cbpd,cde->cbpe", embeds.to(cd),
-                            self.frontend_proj.to(cd))
+        emb = layout.proj("cbpd,cde->cbpe", embeds.to(cd),
+                          self.frontend_proj, cd)
+        return layout.put(emb, layout.act(4))
 
     def forward(self, tokens, embeds=None, *, compute_dtype=torch.bfloat16,
                 use_kernels=True, remat=False, last_token_only=False,
-                with_aux=False):
+                with_aux=False, layout=PLAIN):
         """tokens [c, b, s] → logits [c, b, s, V], causal over s.
 
         embeds: a frontend's precomputed embeddings, projected: vision's
@@ -151,21 +153,22 @@ class Transformer(nn.Module):
         keeps its matmul outputs.  `last_token_only` returns only the last
         position's [c, b, 1, V] (the serving prefill: no [b, s, V] logits
         tensor).  `with_aux` also returns the MoE layers' aux loss summed,
-        [c] (zeros without MoE)."""
+        [c] (zeros without MoE).  `layout` places the activations of a
+        sharded model (`launch.sharding`)."""
         cd, uk = compute_dtype, use_kernels
-        x = embed(self.embed, tokens, cd)
+        x = embed(self.embed, tokens, cd, layout)
         if embeds is not None:
-            emb = self._project(embeds, cd)
+            emb = self._project(embeds, cd, layout)
             x = torch.cat([emb, x], dim=2) if self.cfg.frontend == "vision" \
                 else x + emb
-        c, b, s, _ = x.shape
-        positions = torch.arange(s, dtype=torch.int32,
-                                 device=x.device).expand(c, b, s)
-        aux = torch.zeros(c, dtype=torch.float32, device=x.device)
+        s = x.shape[2]
+        aux = None
         policy = "full" if remat is True else remat
 
         def run(blk, x):
-            x, _, a = blk(x, positions, compute_dtype=cd, use_kernels=uk)
+            # positions None: 0..s-1, made where they are read
+            x, _, a = blk(x, None, compute_dtype=cd, use_kernels=uk,
+                          layout=layout)
             return x, a
 
         blocks = []
@@ -175,11 +178,14 @@ class Transformer(nn.Module):
             fn = functools.partial(run, blk)
             x, a = _remat(fn, policy, x) if policy else fn(x)
             if a is not None:
-                aux = aux + a
+                aux = a if aux is None else aux + a
         x = x[:, :, s - tokens.shape[2]:]          # the text positions
         if last_token_only:
             x = x[:, :, -1:]
-        logits = self._logits(x, cd, uk)
+        logits = self._logits(x, cd, uk, layout)
+        if aux is None and with_aux:
+            aux = torch.zeros(x.shape[0], dtype=torch.float32,
+                              device=x.device)
         return (logits, aux) if with_aux else logits
 
     def init_cache(self, batch, max_len, dtype=torch.bfloat16):
@@ -198,31 +204,33 @@ class Transformer(nn.Module):
         return cache
 
     def decode_step(self, cache, tokens, embeds=None, *,
-                    compute_dtype=torch.bfloat16, use_kernels=True):
+                    compute_dtype=torch.bfloat16, use_kernels=True,
+                    layout=PLAIN):
         """One token per (chain, slot): tokens [c, b, 1] → (logits
         [c, b, 1, V], cache).  `embeds` [c, b, 1, D], an audio frame's
         conditioning, is projected and added, as the reference does.  The
         K/V caches are written in place; an `'M'` layer's cache is
         replaced."""
-        cd, uk = compute_dtype, use_kernels
-        x = embed(self.embed, tokens, cd)
+        cd, uk, L = compute_dtype, use_kernels, layout
+        x = embed(self.embed, tokens, cd, L)
         if embeds is not None:
-            x = x + self._project(embeds, cd)
+            x = x + self._project(embeds, cd, L)
         positions = cache["pos"][:, :, None]
         layers, shared = [], []
         for i, (blk, lc) in enumerate(zip(self.layers, cache["layers"])):
             x, lc, _ = blk(x, positions, lc, compute_dtype=cd,
-                           use_kernels=uk)
+                           use_kernels=uk, layout=L)
             layers.append(lc)
             if self._shared_after(i):
                 x, sc, _ = self.shared(x, positions,
                                        cache["shared"][len(shared)],
-                                       compute_dtype=cd, use_kernels=uk)
+                                       compute_dtype=cd, use_kernels=uk,
+                                       layout=L)
                 shared.append(sc)
         new = {"layers": layers, "pos": cache["pos"] + 1}
         if self.shared is not None:
             new["shared"] = shared
-        return self._logits(x, cd, uk), new
+        return self._logits(x, cd, uk, L), new
 
     def param_tree(self):
         """The weights as the reference's parameter tree (its list
@@ -253,14 +261,14 @@ def nest(named):
 
 
 def loss_fn(model, batch, *, compute_dtype=torch.bfloat16, use_kernels=True,
-            remat=False):
+            remat=False, layout=PLAIN):
     """Per-chain loss [c], never reduced across chains: the
     cross-entropy of batch {"tokens", "targets" [c, b, s], optional
     "embeds"}, plus `router_aux_weight` · the MoE aux loss."""
     logits, aux = model(batch["tokens"], batch.get("embeds"),
                         compute_dtype=compute_dtype, use_kernels=use_kernels,
-                        remat=remat, with_aux=True)
-    ce = cross_entropy(logits, batch["targets"])
+                        remat=remat, with_aux=True, layout=layout)
+    ce = cross_entropy(logits, batch["targets"], layout=layout)
     return ce + model.cfg.router_aux_weight * aux if model.cfg.is_moe \
         else ce
 

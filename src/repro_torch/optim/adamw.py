@@ -17,6 +17,12 @@ quantization (`quantize_grads`, a function that no step calls: the
 reference's `grad_quant_bits` has no reader either, so OptConfig leaves
 it out), decoupled weight decay and a
 warmup-cosine schedule.
+
+On DTensor leaves (a sharded step, `launch.sharding`) the moments take
+their parameter's placements, the clipping norm of each chain reduces
+over the axes that split its leaves (`model`, and the FSDP axis) within
+that chain's devices only, and the update runs on each device's local
+shards: it is elementwise within a chain, so no leaf is gathered.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ import zlib
 
 import torch
 
+from repro_torch.models.layout import is_dtensor, local
 from repro_torch.tree import leaves_with_paths, map_with_paths
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -63,11 +70,17 @@ def init_opt_state(params, cfg: OptConfig):
     dt = DTYPES[cfg.opt_dtype]
 
     def zeros(_, p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
-    dev = leaves_with_paths(params)[0][1].device
+        return torch.zeros_like(p, dtype=dt,
+                                memory_format=torch.contiguous_format)
+    first = leaves_with_paths(params)[0][1]
+    step = torch.zeros((), dtype=torch.int32, device=first.device)
+    if is_dtensor(first):
+        from torch.distributed.tensor import Replicate, distribute_tensor
+        mesh = first.device_mesh
+        step = distribute_tensor(step, mesh, [Replicate()] * mesh.ndim,
+                                 src_data_rank=None)
     return {"m": map_with_paths(zeros, params),
-            "v": map_with_paths(zeros, params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev)}
+            "v": map_with_paths(zeros, params), "step": step}
 
 
 def _chain_axis(path: str) -> int:
@@ -76,10 +89,26 @@ def _chain_axis(path: str) -> int:
 
 
 def _per_chain_sq(path, g):
-    """Sum of squares per chain: [..., C, ...] → [C], in float32."""
+    """Sum of squares per chain: [..., C, ...] → [C], in float32 (of a
+    DTensor: reduced over the mesh dims that split the leaf, sharded as
+    the leaf's chains)."""
     ax = _chain_axis(path)
     dims = tuple(i for i in range(g.ndim) if i != ax)
-    return g.float().square().sum(dim=dims)
+    sq = local(g).float().square().sum(dim=dims)
+    if is_dtensor(g):
+        # the local shard's sums, partial over the mesh dims that split
+        # the leaf's other dims: reduced there only
+        from torch.distributed.tensor import DTensor, Partial, Replicate
+        from torch.distributed.tensor import Shard
+        part = tuple(Shard(0) if p == Shard(ax) else
+                     Partial() if p.is_shard() else Replicate()
+                     for p in g.placements)
+        want = tuple(Replicate() if isinstance(p, Partial) else p
+                     for p in part)
+        sq = DTensor.from_local(sq, g.device_mesh, part, run_check=False)
+        if part != want:
+            sq = sq.redistribute(g.device_mesh, want)
+    return sq
 
 
 def global_norm_per_chain(grads):
@@ -140,14 +169,15 @@ def adamw_update(params, grads, state, cfg: OptConfig):
     flat_m = [m for _, m in leaves_with_paths(state["m"])]
     flat_v = [v for _, v in leaves_with_paths(state["v"])]
     norm = global_norm_per_chain(grads)
-    scale = _clip_scale(norm, cfg.clip_norm)
+    scale = local(_clip_scale(norm, cfg.clip_norm))
     step = state["step"] + 1
-    lr = lr_schedule(cfg, step)
+    lr = lr_schedule(cfg, local(step))
     b1, b2 = cfg.beta1, cfg.beta2
-    bc1 = 1 - b1 ** step.float()
-    bc2 = 1 - b2 ** step.float()
+    bc1 = 1 - b1 ** local(step).float()
+    bc2 = 1 - b2 ** local(step).float()
     for (path, p), g, m, v in zip(flat, flat_g, flat_m, flat_v):
         ax = _chain_axis(path)
+        p, g, m, v = (local(t) for t in (p, g, m, v))
         for c in range(p.shape[ax]):
             pc, gc, mc, vc = (t.select(ax, c) for t in (p, g, m, v))
             gf = (gc.float() * scale[c]).to(gc.dtype).float()

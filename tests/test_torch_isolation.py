@@ -37,6 +37,12 @@ def test_sources_import_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    # the multi-device half among them
+    port = ROOT / "src" / "repro_torch"
+    assert {port / "launch" / m for m in ("mesh.py", "sharding.py",
+                                          "cost.py", "dryrun.py")} | {
+        port / "configs" / "shapes.py", port / "models" / "layout.py",
+        port / "serve_ensemble.py"} <= set(files)
     offenders = [str(f) for f in files if FORBIDDEN.search(f.read_text())]
     assert offenders == []
 
@@ -117,6 +123,9 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         init_params(SMOKES["qwen3-1.7b"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main(["--smoke"])
+    from repro_torch import serve_ensemble
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_ensemble.main([])
 
 
 def test_fault_tolerance_entry_points_default_to_the_card(no_cuda,

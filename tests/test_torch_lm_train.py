@@ -360,17 +360,15 @@ def test_prefill_step_matches_the_reference(name):
 
 
 def test_dist_config_is_the_references():
-    """The port's DistConfig holds the reference's fields that one card
-    reads, with the reference's defaults (`use_kernels` for `use_pallas`),
-    and no field that nothing reads; a step refuses a batch whose chain
+    """The port's DistConfig holds every field of the reference's, with
+    its defaults (`use_kernels` for `use_pallas`): since the sharding
+    rules came, each has a reader; a step refuses a batch whose chain
     count is not `n_chains`."""
     port = {f.name: f.default for f in dataclasses.fields(DistConfig)}
     ref = {f.name: f.default for f in dataclasses.fields(
         jsharding.DistConfig)}
     assert port.pop("use_kernels") is False and ref.pop("use_pallas") is False
-    assert port == {k: ref[k] for k in port}
-    assert set(port) == {"n_chains", "accum_steps", "compute_dtype", "remat",
-                         "remat_policy", "opt_prefill_last_only"}
+    assert port == ref
     cfg = configs.get_arch("internlm2-1.8b", smoke=True)
     model = init_params(cfg, CHAINS, device="cpu")
     toks = torch.zeros((CHAINS + 1, 1, 4), dtype=torch.int32)
