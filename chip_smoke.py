@@ -167,6 +167,14 @@ Phases, one JSON line each:
                  and synchronous checkpoints the same bits; one round
                  plan a run; `elastic_run_average`'s MSE gate; reported:
                  each wall round's ms and its checkpoint's, launches
+  examples       both sLDA examples through their `main` at their own
+                 size (`repro_torch.quickstart`, `parallel_slda`;
+                 `examples_phase`): Nonparallel, Simple and Weighted MSE
+                 under SERVE_MSE_FRAC·var(y_test), Naive worse than
+                 Simple, the bucketed runs' ŷ bit-equal to padded on the
+                 blocks executor, every kill-a-chain MSE finite and the
+                 all-alive one the unmasked combine's; B1 and B2
+                 launched on their main-path variants, B3 none
   profile       one Simple Average run under torch.profiler, at each of
                  the two settings and sparse at 8, then over 8 length
                  buckets at the slice at spl 1 and 8 and Figure 7 at 8
@@ -248,11 +256,18 @@ Phases, one JSON line each:
   arctic_serve   arctic-480b at full width cut to 1 of 35 layers, 2
                  chains: B5 at its group of 7 and B7 at D 7168, the served
                  run, then `zoo_parity` (float32, 1 chain)
+  internlm2_serve, codeqwen_serve, qwen32b_serve
+                 internlm2-1.8b (4 chains), codeqwen1.5-7b (2) and
+                 qwen2.5-32b (1 chain, all 64 layers) at full width and
+                 depth, as moe_serve: B5 at groups 2, 1 (QKV bias) and 5
+                 and B7 at D 2048, 4096 and 5120, the served run, then
+                 `zoo_parity` (float32; 2, 2 and 1 layers and chains)
   frontend_serve internvl2-2b and musicgen-medium at full width and depth,
                  bf16, 4 chains: B5 at the vision prefill's S = 456 and at
                  musicgen's Dh 64 with a group of 1, B7 at their widths;
                  internvl2 served as lm_serve, its fused prefill with 256
-                 patches prepended; musicgen's prefill and 32 tokens
+                 patches prepended; musicgen's prefill (MUSICGEN_PROMPT
+                 steps) and 32 tokens
                  through `launch.steps.make_decode_step` (Simple
                  Average), each step with its frame's embedding; each
                  model's `zoo_parity` (float32, 2 chains: the forward with
@@ -267,8 +282,9 @@ Phases, one JSON line each:
                  (`launch.train.train`) 10 steps straight bit-equal, loss
                  by loss, to 6, a restart from the checkpoint and 4 more,
                  and accum_steps=2 within 1e-4 of one batch
-  (each of the last four frees the one before it and reports its seconds
-  and peak memory)
+  (each of the last seven frees the one before it and reports its
+  seconds and peak memory; the zoo's served runs compare the routes' first
+  decode step after ZOO_PARITY_PROMPT prompt tokens)
   sharded        the multi-device half on this card, under a world-1 NCCL
                  group and `launch.mesh.make_host_mesh` (1 × 1): (a)
                  qwen3-1.7b at full width and depth, bf16, lm_serve's
@@ -288,8 +304,8 @@ Phases, one JSON line each:
                  `max_memory_allocated`, the roofline terms beside the
                  measured ms; no kernel launched (SHARDED_BUDGET_S)
 
-then the kernels line, the card line from nvidia-smi, and last
-{"ok": true, "device": {...}}.
+then the command's seconds, the kernels line, the card line from
+nvidia-smi, and last {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -297,6 +313,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -399,6 +416,18 @@ ZOO_B5 = {
         ("internvl2_prefill_456", 32, 16, 8, 456, 456, 128, True, None),
         ("musicgen_prefill_200_dh64", 32, 24, 24, 200, 200, 64, True, None),
         ("musicgen_decode_256_dh64", 32, 24, 24, 1, 256, 64, True,
+         "ragged")),
+    "internlm2_serve": (
+        ("internlm2_prefill_200_gqa2", 32, 16, 8, 200, 200, 128, True, None),
+        ("internlm2_decode_256_gqa2", 32, 16, 8, 1, 256, 128, True,
+         "ragged")),
+    "codeqwen_serve": (
+        ("codeqwen_prefill_200_mha", 16, 32, 32, 200, 200, 128, True, None),
+        ("codeqwen_decode_256_mha", 16, 32, 32, 1, 256, 128, True,
+         "ragged")),
+    "qwen32b_serve": (
+        ("qwen32b_prefill_200_gqa5", 8, 40, 8, 200, 200, 128, True, None),
+        ("qwen32b_decode_256_gqa5", 8, 40, 8, 1, 256, 128, True,
          "ragged"))}
 ZOO_B7 = {
     "moe_serve": (("phi_decode_hidden", (4, 8, 4096)),
@@ -406,11 +435,30 @@ ZOO_B7 = {
     "arctic_serve": (("arctic_decode_hidden", (2, 8, 7168)),
                      ("arctic_prefill_hidden", (2, 8 * 200, 7168))),
     "frontend_serve": (("internvl2_prefill_hidden", (4, 8 * 456, 2048)),
-                       ("musicgen_decode_hidden", (4, 8, 1536)))}
+                       ("musicgen_decode_hidden", (4, 8, 1536))),
+    "internlm2_serve": (("internlm2_decode_hidden", (4, 8, 2048)),
+                        ("internlm2_prefill_hidden", (4, 8 * 200, 2048))),
+    "codeqwen_serve": (("codeqwen_decode_hidden", (2, 8, 4096)),
+                       ("codeqwen_prefill_hidden", (2, 8 * 200, 4096))),
+    "qwen32b_serve": (("qwen32b_decode_hidden", (1, 8, 5120)),
+                      ("qwen32b_prefill_hidden", (1, 8 * 200, 5120)))}
 # the zoo's serving configurations: (phase, arch, layers kept, chains;
-# the float32 parity's layers and chains)
+# the float32 parity's layers and chains).  The three dense archs the
+# earlier phases left out: internlm2's GQA group of 2, codeqwen's MHA
+# with QKV bias at Dh 128 (about 14.5 GB of bf16 weights a chain) and
+# qwen2.5-32b's group of 5 (40 query heads over 8), one chain at its full
+# 64 layers (65.5 GB of bf16 weights)
 ZOO_SERVE = (("moe_serve", "phi3.5-moe-42b-a6.6b", 4, 4, 1, 2),
-             ("arctic_serve", "arctic-480b", 1, 2, 1, 1))
+             ("arctic_serve", "arctic-480b", 1, 2, 1, 1),
+             ("internlm2_serve", "internlm2-1.8b", 24, 4, 2, 2),
+             ("codeqwen_serve", "codeqwen1.5-7b", 32, 2, 2, 2),
+             ("qwen32b_serve", "qwen2.5-32b", 64, 1, 1, 1))
+# the zoo's cuts to keep the command under 1,000 s on a slow host: the
+# served runs' first-step route comparison after a prefill of 16 prompt
+# tokens (not 200), and musicgen's prompt primed by 100 decode steps (not
+# 200)
+ZOO_PARITY_PROMPT = 16
+MUSICGEN_PROMPT = 100
 # lm_train at full width and depth: chains, batch rows and tokens a row
 # per chain, steps (the first a warm-up)
 TRAIN_SHAPE = (2, 2, 128, 4)
@@ -697,7 +745,7 @@ def parity_phase(phase, cfg, seed, dev, route_tol=LM_PARITY_TOL):
 
 
 def serve_phase(phase, arch, combine, seed, dev, smi, event_ms, *,
-                cfg=None, chains=4):
+                cfg=None, chains=4, parity_prompt=None):
     """`arch` at full width and depth (or `cfg`, the arch cut in depth;
     random weights from `seed`), bf16, `chains` chains, 8 slots,
     200-token prompts, 32 greedy tokens through `ServingEngine.generate`
@@ -706,8 +754,9 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms, *,
     counted as part of the served run.  Then the fused prefill, timed
     (a frontend's embeddings from `serve_lm.make_embeds` in it and in
     the weights' pass; an MoE's drop share read), and on the first
-    decode step after the prefill the kernel route's logits against the
-    plain route's.  Checks finite logits, tokens in the vocabulary and
+    decode step after a prefill of the prompts (their first
+    `parity_prompt` tokens, when given) the kernel route's logits against
+    the plain route's.  Checks finite logits, tokens in the vocabulary and
     every kernel's launches.
     Returns (the engine after its prefill, the token it feeds next, the
     unprofiled ms per decode step, the served run's launches with
@@ -777,7 +826,8 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms, *,
     # the first decode step after the prefill, by each route, from one
     # cache state (what the step writes in place is put back in between)
     engine.reset()
-    last = engine.prefill(prompts)
+    last = engine.prefill(prompts if parity_prompt is None
+                          else prompts[:, :parity_prompt])
     saved = [t.clone() for t in cache_tensors(engine.cache)]
     logits_k, _ = model.decode_step(engine.cache, last, compute_dtype=bf16)
     for t, s in zip(cache_tensors(engine.cache), saved):
@@ -820,6 +870,7 @@ def serve_phase(phase, arch, combine, seed, dev, smi, event_ms, *,
            "b5_variant_launches": gen_variants,
            "fused_prefill_b5_variant_launches": fused_variants,
            "fused_prefill_b6_variant_launches": fused_b6_variants,
+           "first_step_after_tokens": parity_prompt or P,
            "first_step_max_abs_logit_diff": step_err,
            "first_step_argmax_agreement_rows": agree_rows,
            "first_step_disagreeing_rows_max_lead":
@@ -1265,7 +1316,7 @@ def zoo_parity(phase, cfg, chains, seed, dev, *, prompt_len=32):
 
 def musicgen_serve(seed, dev, event_ms):
     """musicgen-medium at full width and depth, bf16, 4 chains, 8 slots:
-    200 prompt steps and 32 greedy tokens through
+    MUSICGEN_PROMPT prompt steps and 32 greedy tokens through
     `launch.steps.make_decode_step(combine="simple")`, every step with
     its frame's embedding (`serve_lm.make_embeds`).  Checks finite logits,
     tokens in the vocabulary and each step's B5 and B7 launches.
@@ -1275,7 +1326,7 @@ def musicgen_serve(seed, dev, event_ms):
     from repro_torch.launch.sharding import DistConfig
     from repro_torch.launch.steps import make_decode_step
 
-    bf16, C, S, P, NEW = torch.bfloat16, 4, 8, 200, 32
+    bf16, C, S, P, NEW = torch.bfloat16, 4, 8, MUSICGEN_PROMPT, 32
     model = serve_lm.build_model("musicgen-medium", smoke=False, chains=C,
                                  dtype=bf16, device=dev, seed=seed)
     cfg = model.cfg
@@ -1328,8 +1379,9 @@ def musicgen_serve(seed, dev, event_ms):
 
 
 def zoo_phases(seed, dev, smi, event_ms, bound_ms):
-    """The rest of the LM zoo (moe_serve, arctic_serve, frontend_serve)
-    and single-card training (lm_train).  Each phase frees the one
+    """The rest of the LM zoo (moe_serve, arctic_serve, internlm2_serve,
+    codeqwen_serve, qwen32b_serve, frontend_serve) and single-card
+    training (lm_train).  Each phase frees the one
     before it and reports its seconds and peak memory.  Returns each
     serving phase's B5 (decode), B5_prefill and B7 launches."""
     import torch
@@ -1368,12 +1420,13 @@ def zoo_phases(seed, dev, smi, event_ms, bound_ms):
     for phase, arch, layers, chains, p_layers, p_chains in ZOO_SERVE:
         t0 = start()
         full = get_arch(arch)
-        assert full.moe_top_k == 2       # the combine's exact sum
+        assert not full.is_moe or full.moe_top_k == 2  # the exact sum
         kernel_rows(phase, full.norm_eps)
         cut = dataclasses.replace(full, n_layers=layers)
         engine, _, _, got = serve_phase(phase, arch, "simple", seed, dev,
                                         smi, event_ms, cfg=cut,
-                                        chains=chains)
+                                        chains=chains,
+                                        parity_prompt=ZOO_PARITY_PROMPT)
         launches[phase] = counts(got)
         del engine
         gc.collect()
@@ -1386,7 +1439,8 @@ def zoo_phases(seed, dev, smi, event_ms, bound_ms):
     t0 = start()
     kernel_rows("frontend_serve", get_arch("internvl2-2b").norm_eps)
     engine, _, _, got = serve_phase("frontend_serve", "internvl2-2b",
-                                    "simple", seed, dev, smi, event_ms)
+                                    "simple", seed, dev, smi, event_ms,
+                                    parity_prompt=ZOO_PARITY_PROMPT)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -2720,6 +2774,57 @@ def parallel_phase(seed, dev, smi, train, test, runs, zero_counts,
     return total
 
 
+def examples_phase(seed, smi, zero_counts, read_counts):
+    """Both sLDA examples through their `main` on the card, at their own
+    size (`repro_torch.quickstart`, `repro_torch.parallel_slda`), each run's
+    B1–B3 launches zeroed before it and read after it.  Gates: Nonparallel,
+    Simple and Weighted MSE under SERVE_MSE_FRAC·var(y_test), Naive worse
+    than Simple; the bucketed runs' ŷ bit-equal to the padded ones (spl 1)
+    on the blocks executor; every kill-a-chain MSE finite, the all-alive
+    one the unmasked combine's; B1 and B2 launched, on the main path's
+    variants, and B3 and the sparse draw not.  Returns the launches."""
+    from repro_torch import parallel_slda, quickstart
+    t0 = time.perf_counter()
+    out = {}
+    total = dict.fromkeys(("B1", "B2", "B3", "B4"), 0)
+    for name, mod in (("quickstart", quickstart),
+                      ("parallel_slda", parallel_slda)):
+        zero_counts()
+        t1 = time.perf_counter()
+        out[name] = mod.main(["--seed", str(seed)])
+        seconds = time.perf_counter() - t1
+        n, n_sparse, variants = read_counts()
+        for k in ("B1", "B2", "B3"):
+            total[k] += n[k]
+        total["B4"] += sum(n_sparse.values())
+        emit({"phase": "examples", "example": name, "card": smi,
+              "seconds": seconds, "launches": n,
+              "variant_launches": variants, "result": out[name]})
+        check(n["B1"] > 0 and n["B2"] > 0 and n["B3"] == 0
+              and not any(n_sparse.values()),
+              f"examples {name}: launches {n}, sparse {n_sparse}")
+        check(variants["B1"]["lane"] == n["B1"]
+              and variants["B2"]["half_warp"] == n["B2"],
+              f"examples {name}: variants {variants}")
+    q, p = out["quickstart"], out["parallel_slda"]
+    q_cap = SERVE_MSE_FRAC * q["var_y_test"]
+    check(q["nonparallel_mse"] < q_cap and q["simple_mse"] < q_cap
+          and q["ragged_equals_padded"], f"examples quickstart: {q}")
+    algo, cap = p["algorithms"], SERVE_MSE_FRAC * p["var_y_test"]
+    check(all(algo[k]["mse"] < cap
+              for k in ("nonparallel", "simple", "weighted"))
+          and algo["naive"]["mse"] > algo["simple"]["mse"],
+          f"examples parallel_slda: accuracy {algo}")
+    check(p["ragged"]["executor"] == "blocks" and p["ragged"]["equals_padded"],
+          f"examples parallel_slda: ragged {p['ragged']}")
+    check(all(math.isfinite(k["mse"]) for k in p["kill"])
+          and p["kill"][0]["mse"] == p["kill_unmasked_mse"],
+          f"examples parallel_slda: kill {p['kill']}")
+    emit({"phase": "examples", "done": True,
+          "seconds": time.perf_counter() - t0})
+    return total
+
+
 def elastic_phase(seed, dev, smi, train, test, runs, zero_counts,
                   read_counts, main_variant):
     """The elastic runner (`repro_torch.launch.elastic`) at the slice's
@@ -2876,6 +2981,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4091,6 +4197,9 @@ def main() -> int:
         (("spl1", cfg), ("spl8_sparse", sparse_fused)),
         zero_counts, read_counts, main_variant)
 
+    # ---- examples: the two sLDA examples through their `main`
+    examples = examples_phase(args.seed, smi, zero_counts, read_counts)
+
     # ---- where the time goes: one simple-average run under the profiler
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4236,11 +4345,12 @@ def main() -> int:
            else {}),
         **({"serving_launches": sum(row[k] for row in serving.values())}
            if k in ("B1", "B4") else {}),
-        **({"parallel_launches": parallel[k], "elastic_launches": elastic[k]}
-           if k in parallel else {}),
+        **({"parallel_launches": parallel[k], "elastic_launches": elastic[k],
+            "examples_launches": examples[k]} if k in parallel else {}),
         **({"zoo_launches": {ph: n[k] for ph, n in zoo_launches.items()}}
            if k in ("B5", "B5_prefill", "B7") else {})}
         for k, (name, src, rep) in sources.items()]})
+    emit({"phase": "command", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

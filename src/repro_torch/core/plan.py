@@ -6,19 +6,32 @@ a `BucketedCorpus`: the padded corpus is the degenerate one-bucket
 schedule with the identity permutation (`as_bucketed`), which gathers
 nothing, and `build_schedule` buckets a corpus by length when
 `cfg.length_buckets > 0`.  Every chain layout is chain-batched (a single
-chain is M = 1).  Every route runs the reference's "blocks" executor:
-one kernel launch a bucket, with the PRNG counter stride pinned to the
-source corpus's max_len, so that a bucketed run draws what the padded
-run draws, document by document.  (The reference's staircase executors,
-its CPU route for several buckets, are not ported.)
+chain is M = 1).  The plan picks one of the reference's two executors
+(`ExecutionPlan.executor`):
+
+  * "blocks", on the card and for one bucket: one kernel launch a
+    bucket, with the PRNG counter stride pinned to the source corpus's
+    max_len, so that a bucketed run draws what the padded run draws,
+    document by document;
+  * "stair", on the CPU over several buckets (the reference's `jnp`
+    route there): the staircase executors, which fold the chains
+    doc-major around one stacked table and walk the bucket widths as
+    segments of one pass over the token positions
+    (`slda_train.slda_train_stair`, `slda_predict.slda_predict_stair`).
+    Prediction and one-sweep launches draw per document what the blocks
+    executor draws; a fused launch refreshes the table from the whole
+    corpus between its sweeps, where the blocks executor refreshes a doc
+    block's private copy: another member of the fused sampler family,
+    the reference's on its CPU route.
 
 At `sweeps_per_launch=1` each EM iteration is one `ops.slda_gibbs_sweep`
-a bucket over all chains, followed by the exact count refresh and the η
-solve on original-order rows; at `sweeps_per_launch>1` each EM boundary
-follows one fused `ops.slda_train_sweeps` launch a bucket of that many
-sweeps (a shorter remainder launch keeps the total at `n_iters`).
-Prediction is one `ops.slda_predict_sweeps` a bucket over a corpus
-shared by all chains.  The random numbers come in as arguments
+a bucket over all chains (on either executor), followed by the exact
+count refresh and the η solve on original-order rows; at
+`sweeps_per_launch>1` each EM boundary follows one fused launch of that
+many sweeps, `ops.slda_train_sweeps` a bucket or one staircase launch
+(a shorter remainder launch keeps the total at `n_iters`).  Prediction
+is one `ops.slda_predict_sweeps` a bucket, or one staircase pass, over
+a corpus shared by all chains.  The random numbers come in as arguments
 (`core.rng`), drawn at the source's padded shape.  `cfg.sampler_mode`
 picks the dense or the sparse two-stage draw; the sparse draw's index is
 built once an EM boundary (and once a prediction) for every bucket.  The
@@ -38,14 +51,18 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, slda_predict, slda_train
 from repro_torch.mathutil import chain_matvec, per_chain
 from .regression import solve_eta
 from .types import (BucketedCorpus, GibbsState, SLDAConfig, SLDAModel,
+                    _stair_segments, _take_docs, _unstair_segments,
                     apply_count_deltas, bucket_corpus, bucket_signature,
                     counts_from_assignments)
+
+EXECUTORS = ("blocks", "stair")
 
 _stream_pool: dict = {}
 
@@ -89,17 +106,63 @@ def _lift_chain(bc: BucketedCorpus) -> BucketedCorpus:
                           ctr_stride=bc.ctr_stride, identity=bc.identity)
 
 
-def build_plan(corpus, cfg: SLDAConfig, *,
-               chained: bool = False) -> "ExecutionPlan":
+def build_plan(corpus, cfg: SLDAConfig, *, chained: bool = False,
+               executor: str | None = None) -> "ExecutionPlan":
     """The plan for `(corpus, cfg)`.  `corpus` is a padded `Corpus` (flat
     or chain-sharded) or a `BucketedCorpus`; it is canonicalized, not
     re-bucketed (`build_schedule` does that).  `chained=True` lifts a
     flat corpus [D, N] to one chain [1, D, N] so that the chain-batched
-    EM loop applies."""
+    EM loop applies.  `executor` (the reference's `backend` argument)
+    None takes the rule of `ExecutionPlan.executor`; "blocks" or "stair"
+    forces one, and "stair" raises on a CUDA corpus, as the reference has
+    no staircase route on its kernels."""
     bc = as_bucketed(corpus)
     if chained:
         bc = _lift_chain(bc)
-    return ExecutionPlan(corpus=bc, cfg=cfg)
+    if executor is not None and executor not in EXECUTORS:
+        raise ValueError(f"executor={executor!r}: expected one of "
+                         f"{EXECUTORS} or None")
+    if executor == "stair" and bc.perm.device.type != "cpu":
+        raise ValueError("the stair executor runs on the CPU only; "
+                         f"the corpus is on {bc.perm.device}")
+    return ExecutionPlan(corpus=bc, cfg=cfg, forced_executor=executor)
+
+
+def _stair_layout(bc: BucketedCorpus, m: int, vocab_size: int):
+    """The doc-major chain fold of the staircase executors, shared by
+    training and prediction: row r = d·M + c (a suffix of sorted documents
+    stays a suffix of rows), each segment's first row and first token
+    position, and the chains' offsets into the stacked [M·W, T] table.
+    Returns (fold, unfold, sort, unsort, seg_r0, seg_n0, off): fold
+    [M, D, ...] → [D·M, ...] and unfold back; sort / unsort original ↔
+    sorted document order along axis 1."""
+    def fold(a):
+        return a.transpose(0, 1).reshape((-1,) + tuple(a.shape[2:]))
+
+    def unfold(a):
+        return a.reshape((-1, m) + tuple(a.shape[1:])).transpose(0, 1)
+
+    def sort(a):
+        return _take_docs(a, bc.perm, 1)
+
+    def unsort(a):
+        return _take_docs(a, bc.inv_perm, 1)
+
+    starts = np.cumsum([0] + list(bc.counts))
+    seg_r0 = [int(s) * m for s in starts[:-1]]
+    seg_n0 = [0] + list(bc.widths[:-1])
+    off = torch.arange(m, device=bc.perm.device) * vocab_size
+    return fold, unfold, sort, unsort, seg_r0, seg_n0, off
+
+
+def _stacked(table, index):
+    """A word-major chain table [M, T, W] (`_word_major`) and its sparse
+    index ([M, W, ·] each, or None) as the stacked [M·W, T] table and
+    [M·W, ·] rows the staircase executors read."""
+    M, T, W = table.shape
+    rows = None if index is None else tuple(
+        a.reshape(M * W, a.shape[-1]) for a in index)
+    return table.transpose(-1, -2).reshape(M * W, T), rows
 
 
 def _word_major(table):
@@ -154,8 +217,18 @@ class ExecutionPlan:
 
     corpus: BucketedCorpus
     cfg: SLDAConfig
+    forced_executor: str | None = None
 
-    executor = "blocks"
+    @property
+    def executor(self) -> str:
+        """"stair" on the CPU over several buckets, "blocks" on the card and
+        for one bucket (the reference's rule, with the device in place of
+        its backend), unless `build_plan` forced one."""
+        if self.forced_executor is not None:
+            return self.forced_executor
+        if self.device.type == "cpu" and len(self.corpus.buckets) > 1:
+            return "stair"
+        return "blocks"
 
     @property
     def n_chains(self):
@@ -347,6 +420,47 @@ class ExecutionPlan:
         z_new_b, ndt_b = zip(*self._launch(calls, n_sweeps))
         return list(z_new_b), bc.merge_docs(ndt_b)
 
+    @functools.cached_property
+    def _stair_staging(self) -> dict:
+        """What a staircase training launch reads of the schedule, folded
+        once: the token (offset into the stacked table) and mask segments,
+        each row's chain, y and 1/len in sorted order."""
+        bc = self.corpus
+        M, W = bc.n_chains, self.cfg.vocab_size
+        fold, unfold, sort, unsort, seg_r0, seg_n0, off = _stair_layout(
+            bc, M, W)
+        return dict(
+            fold=fold, unfold=unfold, sort=sort, unsort=unsort,
+            seg_r0=seg_r0, seg_n0=seg_n0,
+            tok_segs=[fold(s + off[:, None, None]) for s in _stair_segments(
+                bc, [b.tokens for b in bc.buckets])],
+            mask_segs=[fold(s) for s in _stair_segments(
+                bc, [b.mask for b in bc.buckets])],
+            chain_of_row=torch.arange(M, device=self.device).repeat(
+                bc.n_docs),
+            y_f=fold(torch.cat([b.y for b in bc.buckets], 1)),
+            il_f=fold(torch.cat(self._inv_len_b, 1)))
+
+    def _stair_launch(self, state, ntw, seeds, n_sweeps: int, index):
+        """One staircase launch of `n_sweeps` sweeps over every chain and
+        bucket, from the per-document seeds [M, D] (original order), with
+        the counter stride pinned to the source's max_len: the CPU route
+        over several buckets (`slda_train.slda_train_stair`)."""
+        bc, cfg, st = self.corpus, self.cfg, self._stair_staging
+        fold, unfold, sort = st["fold"], st["unfold"], st["sort"]
+        table, rows = _stacked(ntw, index)
+        z_segs, ndt_f = slda_train.slda_train_stair(
+            st["tok_segs"], st["mask_segs"],
+            [fold(z) for z in _stair_segments(bc, state.z)], st["seg_r0"],
+            st["seg_n0"], fold(sort(seeds)), fold(sort(state.ndt)),
+            st["y_f"], st["il_f"], table, state.nt, state.eta,
+            st["chain_of_row"], alpha=cfg.alpha, beta=cfg.beta,
+            rho=cfg.rho, vocab_size=cfg.vocab_size,
+            ctr_stride=bc.ctr_stride, n_sweeps=n_sweeps, supervised=True,
+            product_form=cfg.product_form_sweeps, topic_index=rows)
+        z_new_b = _unstair_segments(bc, [unfold(z) for z in z_segs])
+        return z_new_b, st["unsort"](unfold(ndt_f))
+
     def _rebuild_now(self, it: int) -> bool:
         every = self.cfg.count_rebuild_every
         return every > 0 and it % every == 0
@@ -377,6 +491,9 @@ class ExecutionPlan:
             index = self._index(ntw)
             if spl == 1:
                 z_new, ndt = self._seed_sweep(state, ntw, draw, index)
+            elif self.executor == "stair":
+                z_new, ndt = self._stair_launch(state, ntw, draw, n_sweeps,
+                                                index)
             else:
                 z_new, ndt = self._blocks_launch(state, ntw, draw, n_sweeps,
                                                  index)
@@ -425,12 +542,19 @@ class ExecutionPlan:
         document of the plan's (shared) corpus, in original order, from
         explicit initial topics z0 [M, D, ctr_stride] and per-document
         seeds [M, D]: one kernel-B1 launch a bucket on the card."""
-        bc, cfg = self.corpus, self.cfg
         if self.n_chains is not None:
             raise ValueError("predict wants a shared (flat) corpus")
-        M = z0.shape[0]
         phi = _word_major(models.phi)
         index = self._index(phi)
+        run = (self._predict_stair if self.executor == "stair"
+               else self._predict_blocks)
+        return run(phi, index, z0, seeds) / self._lengths[:, None]
+
+    def _predict_blocks(self, phi, index, z0, seeds):
+        """The blocks prediction executor: one B1 launch a bucket over
+        every chain.  Returns ndt_avg [M, D, T] in original order."""
+        bc, cfg = self.corpus, self.cfg
+        M = z0.shape[0]
         calls = []
         for b, z0b, sb in zip(bc.buckets, bc.split_padded(z0, d_axis=1),
                               bc.split_docs(seeds, d_axis=1)):
@@ -443,10 +567,39 @@ class ExecutionPlan:
                 n_samples=cfg.n_pred_samples, ctr_stride=bc.ctr_stride,
                 sampler_mode=cfg.sampler_mode,
                 sparse_topic_cap=cfg.sparse_topic_cap, topic_index=index))
-        ndt_avg = bc.merge_docs(
+        return bc.merge_docs(
             [avg for avg, _ in self._launch(calls, self._predict_sweeps())],
             d_axis=1)
-        return ndt_avg / self._lengths[:, None]
+
+    def _predict_stair(self, phi, index, z0, seeds):
+        """The staircase prediction executor, the CPU route over several
+        buckets (`slda_predict.slda_predict_stair`): the shared corpus
+        broadcast to every chain, folded doc-major around the stacked
+        φ̂.  Returns ndt_avg [M, D, T] in original order."""
+        bc, cfg = self.corpus, self.cfg
+        M, T = z0.shape[0], cfg.n_topics
+        fold, _, sort, _, seg_r0, seg_n0, off = _stair_layout(
+            bc, M, cfg.vocab_size)
+        table, rows = _stacked(phi, index)
+        z0_b = bc.split_padded(z0, d_axis=1)          # [M, D_b, N_b] sorted
+        ndt0 = torch.cat([counts_from_assignments(
+            b.tokens.expand(M, -1, -1), b.mask.expand(M, -1, -1), zb, T,
+            cfg.vocab_size)[0] for b, zb in zip(bc.buckets, z0_b)], 1)
+        seg_tok = [(tk.long()[:, None, :] + off[None, :, None])
+                   .reshape(-1, tk.shape[-1])
+                   for tk in _stair_segments(bc, [b.tokens
+                                                  for b in bc.buckets])]
+        seg_mask = [mk[:, None, :].expand(-1, M, -1).reshape(
+            -1, mk.shape[-1])
+            for mk in _stair_segments(bc, [b.mask for b in bc.buckets])]
+        avg_f = slda_predict.slda_predict_stair(
+            seg_tok, seg_mask, [fold(z) for z in _stair_segments(bc, z0_b)],
+            seg_r0, seg_n0, fold(sort(seeds)), fold(ndt0), table,
+            alpha=cfg.alpha, n_burnin=cfg.n_pred_burnin,
+            n_samples=cfg.n_pred_samples, ctr_stride=bc.ctr_stride,
+            topic_index=rows)
+        avg = avg_f.reshape(bc.n_docs, M, T).transpose(0, 1)
+        return _take_docs(avg, bc.inv_perm, 1)
 
     def predict(self, z0, seeds, models: SLDAModel):
         """Every chain predicts every document → ŷ [M, D] (Eq. 5)."""

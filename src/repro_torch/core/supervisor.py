@@ -378,7 +378,8 @@ class ChainSupervisor:
         if r_iters not in self._round_plans:
             self._round_plans[r_iters] = ExecutionPlan(
                 corpus=self.plan.corpus,
-                cfg=dataclasses.replace(self.cfg, n_iters=r_iters))
+                cfg=dataclasses.replace(self.cfg, n_iters=r_iters),
+                forced_executor=self.plan.forced_executor)
         return self._round_plans[r_iters]
 
     def run_round(self, round_plan, draws, state, alive, boundary_off):

@@ -285,6 +285,31 @@ class BucketedCorpus:
              for p, f in zip(pieces, fills)], d_axis)
 
 
+def _stair_segments(bc: BucketedCorpus, pieces) -> list:
+    """Per-bucket token-padded pieces [.., D_b, N_b] → stair segments:
+    segment k holds token columns [w_{k-1}, w_k) of buckets k..K, the
+    documents still alive there (a suffix of the sorted order)."""
+    out, w_prev = [], 0
+    for k, w in enumerate(bc.widths):
+        out.append(torch.cat([p[..., w_prev:w] for p in pieces[k:]], -2))
+        w_prev = w
+    return out
+
+
+def _unstair_segments(bc: BucketedCorpus, segs) -> list:
+    """Inverse of `_stair_segments`: stair segments [.., D_k, L_k] back to
+    per-bucket token-padded pieces [.., D_b, N_b]."""
+    starts = np.cumsum([0] + list(bc.counts))
+    out = []
+    for j, c in enumerate(bc.counts):
+        cols = []
+        for k in range(j + 1):
+            a = int(starts[j] - starts[k])
+            cols.append(segs[k][..., a:a + c, :])
+        out.append(torch.cat(cols, -1))
+    return out
+
+
 def bucket_signature(bc: BucketedCorpus) -> tuple:
     """The static shape signature of a bucketed schedule: one (width,
     count) pair a bucket, the PRNG counter stride, the chain layout and

@@ -47,7 +47,7 @@ def _draw(p, u):
     return z.clamp(max=p.shape[-1] - 1).to(torch.int32)
 
 
-def _draw_rows(p, u, w, m, index):
+def draw_rows(p, u, w, m, index):
     """The dense draw, or with a folded index `(idx, vmask, occm)` rows
     the sparse two-stage draw against the rows of the words w (tallying
     the real tokens, mask m > 0, that took stage 2)."""
@@ -110,6 +110,38 @@ def _fold_chains(tokens, table_t):
     return tok_f, table_t.reshape(M * W, T)
 
 
+def token_weights(prior, s, eta_rows, il, y, rho, supervised,
+                  product_form):
+    """A token's unnormalized topic weights [R, T] from its collapsed
+    prior: with `product_form` the product (N_dt + α)(N_tw + β)/(N_t + Wβ)
+    times one exp of the Gaussian term, else the exp of the sum of the
+    three factors' logs and the Gaussian term; both shifted by their row
+    max.  s is the row's running Σ_t η_t·N_dt [R] (the token taken out)."""
+    if supervised:
+        mu_t = (s[:, None] + eta_rows) * il[:, None]
+        if product_form:
+            g = -0.5 * (y[:, None] - mu_t) ** 2 / rho
+            return prior * torch.exp(g - g.max(-1, keepdim=True).values)
+        prior = prior - 0.5 * (y[:, None] - mu_t) ** 2 / rho
+    elif product_form:
+        return prior
+    return torch.exp(prior - prior.max(-1, keepdim=True).values)
+
+
+def predict_step(ndt, w, m, z_old, u, table_t, alpha, index):
+    """One token position of a prediction sweep over R rows in lockstep:
+    the token's topic redrawn against the frozen table rows of its words
+    w.  Returns (ndt, z_new)."""
+    iota = torch.arange(ndt.shape[-1], device=ndt.device)[None, :]
+    old = (iota == z_old.long()[:, None]).to(torch.float32) * m[:, None]
+    ndt = ndt - old
+    p = (ndt + alpha) * table_t[w]
+    z_new = torch.where(m > 0, draw_rows(p, u, w, m, index), z_old)
+    ndt = ndt + (iota == z_new.long()[:, None]).to(torch.float32) \
+        * m[:, None]
+    return ndt, z_new
+
+
 def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
                 nt_rows, eta_rows, alpha, beta, rho, vocab_size,
                 supervised, product_form=False, index=None):
@@ -134,21 +166,15 @@ def _gibbs_rows(tok_f, mask_f, unif_f, z_f, ndt_f, y_f, il_f, table_t,
         ndt = ndt - old
         s = s - eta_rows.gather(1, zo)[:, 0] * m
         if product_form:
-            p = (ndt + alpha) * (table_t[w] - old + beta) \
+            prior = (ndt + alpha) * (table_t[w] - old + beta) \
                 / (nt_rows - old + w_beta)
-            if supervised:
-                mu_t = (s[:, None] + eta_rows) * il_f[:, None]
-                g = -0.5 * (y_f[:, None] - mu_t) ** 2 / rho
-                p = p * torch.exp(g - g.max(-1, keepdim=True).values)
         else:
-            logp = (torch.log(ndt + alpha)
-                    + torch.log(table_t[w] - old + beta)
-                    - torch.log(nt_rows - old + w_beta))
-            if supervised:
-                mu_t = (s[:, None] + eta_rows) * il_f[:, None]
-                logp = logp - 0.5 * (y_f[:, None] - mu_t) ** 2 / rho
-            p = torch.exp(logp - logp.max(-1, keepdim=True).values)
-        z_new = torch.where(m > 0, _draw_rows(p, u, w, m, index),
+            prior = (torch.log(ndt + alpha)
+                     + torch.log(table_t[w] - old + beta)
+                     - torch.log(nt_rows - old + w_beta))
+        p = token_weights(prior, s, eta_rows, il_f, y_f, rho, supervised,
+                          product_form)
+        z_new = torch.where(m > 0, draw_rows(p, u, w, m, index),
                             z_old)
         zn = z_new.long()[:, None]
         ndt = ndt + (iota == zn).to(torch.float32) * m[:, None]
@@ -326,25 +352,15 @@ def _predict_rows(tok_f, mask_f, z0_f, ndt0_f, table_t, alpha, n_burnin,
     """All prediction sweeps over R rows in lockstep under frozen φ̂;
     `uniform(s, n)` gives the [R] uniforms of token n in sweep s; `index`
     as `_gibbs_rows`'."""
-    R, N = tok_f.shape
-    T = ndt0_f.shape[-1]
-    iota = torch.arange(T, device=tok_f.device)[None, :]
+    N = tok_f.shape[1]
     z = z0_f.clone()
     ndt = ndt0_f
     acc = torch.zeros_like(ndt0_f)
     for s in range(n_burnin + n_samples):
         for n in range(N):
-            w, m, z_old = tok_f[:, n], mask_f[:, n], z[:, n]
-            old = (iota == z_old.long()[:, None]).to(torch.float32) \
-                * m[:, None]
-            ndt = ndt - old
-            p = (ndt + alpha) * table_t[w]
-            z_new = torch.where(
-                m > 0, _draw_rows(p, uniform(s, n), w, m, index),
-                z_old)
-            ndt = ndt + (iota == z_new.long()[:, None]).to(torch.float32) \
-                * m[:, None]
-            z[:, n] = z_new
+            ndt, z[:, n] = predict_step(ndt, tok_f[:, n], mask_f[:, n],
+                                        z[:, n], uniform(s, n), table_t,
+                                        alpha, index)
         if s >= n_burnin:
             acc = acc + ndt
     # explicit f32 reciprocal multiply, as the reference kernel does

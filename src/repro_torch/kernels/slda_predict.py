@@ -12,6 +12,10 @@ The plain version is `ref.slda_predict_sweeps_chains`.  `launches`
 counts the kernel's launches and nothing else, `variant_launches` the
 same launches by variant; `sparse_launches` counts those of them that
 drew with the sparse two-stage draw (kernel B4).
+
+`slda_predict_stair` is the plan's CPU route over several length
+buckets (the reference's `slda_predict_stair_jnp`): plain tensor code,
+no kernel.
 """
 from __future__ import annotations
 
@@ -20,7 +24,8 @@ import ctypes
 import numpy as np
 import torch
 
-from . import build, sparse as _sparse
+from . import build, ref, sparse as _sparse
+from .prng import counter_uniform
 
 launches = 0
 sparse_launches = 0
@@ -128,3 +133,44 @@ def counter_uniform_cuda(seeds, ctrs):
                     build.stream_of(seeds.device))
     build.check_launch("slda_predict", rc)
     return out
+
+
+def slda_predict_stair(seg_tokens, seg_mask, seg_z0, seg_row_start,
+                       seg_tok_start, seeds, ndt0, phi_t, *, alpha,
+                       n_burnin, n_samples, ctr_stride, topic_index=None):
+    """The staircase prediction executor: every sweep of every chain over
+    a length-bucketed corpus in one pass, token position by position.
+
+    Documents are sorted by length, ascending, and the chains folded
+    doc-major (row r = d·M + c), so the bucket widths w_1 < .. < w_K cut
+    the positions into segments [w_{k-1}, w_k) on which the documents
+    still alive are the row suffix from `seg_row_start[k]`: a sweep takes
+    w_K steps (not the Σ_b w_b of one call a bucket), each on the live
+    rows only.  Every operation is independent per row and token n of
+    segment k in sweep s draws counter_uniform(seeds[r], s·ctr_stride +
+    seg_tok_start[k] + n), so each document's result is bit for bit that
+    of `ref.slda_predict_sweeps_chains` on the padded corpus.
+
+    seg_tokens / seg_mask / seg_z0 [R_k, L_k] per segment (token ids
+    offset by c·W into the stacked table); seeds int32 [R]; ndt0 f32
+    [R, T]; phi_t f32 [M·W, T], the chains' tables stacked; topic_index
+    None (the dense draw) or the sparse draw's index of phi_t
+    ([M·W, ·] rows).  Returns ndt_avg [R, T]."""
+    segs = [(tok.long(), mk, z.clone(), int(r0), int(n0))
+            for tok, mk, z, r0, n0 in zip(seg_tokens, seg_mask, seg_z0,
+                                          seg_row_start, seg_tok_start)]
+    ndt = ndt0.clone()
+    acc = torch.zeros_like(ndt0)
+    for s in range(n_burnin + n_samples):
+        for tok, mk, z, r0, n0 in segs:
+            nd, sd = ndt[r0:], seeds[r0:]
+            for n in range(tok.shape[1]):
+                nd, z[:, n] = ref.predict_step(
+                    nd, tok[:, n], mk[:, n], z[:, n],
+                    counter_uniform(sd, s * ctr_stride + n0 + n), phi_t,
+                    alpha, topic_index)
+            ndt[r0:] = nd
+        if s >= n_burnin:
+            acc = acc + ndt
+    # explicit f32 reciprocal multiply, as the padded route does
+    return acc * float(np.float32(1.0 / n_samples))

@@ -12,6 +12,9 @@ either variant's order of documents.  The plain version is
 and nothing else, `variant_launches` the same launches by variant;
 `sparse_launches` counts those of them that drew with the sparse
 two-stage draw (kernel B4).
+
+`slda_train_stair` is the plan's CPU route over several length buckets
+(the reference's `slda_train_stair_jnp`): plain tensor code, no kernel.
 """
 from __future__ import annotations
 
@@ -19,7 +22,8 @@ import ctypes
 
 import torch
 
-from . import build, sparse as _sparse
+from . import build, ref, sparse as _sparse
+from .prng import counter_uniform
 
 launches = 0
 sparse_launches = 0
@@ -173,3 +177,98 @@ def slda_train_sweeps_cuda(tokens, mask, seeds, z0, ndt0, y, inv_len, ntw_t,
     variant_launches[kernel_variant] += 1
     sparse_launches += topic_index is not None
     return z_out, ndt_out
+
+
+def slda_train_stair(seg_tokens, seg_mask, seg_z0, seg_row_start,
+                     seg_tok_start, seeds, ndt0, y, inv_len, ntw_t_stack, nt,
+                     eta, chain_of_row, *, alpha, beta, rho, vocab_size,
+                     ctr_stride, n_sweeps, supervised=True,
+                     product_form=False, topic_index=None):
+    """The staircase training executor: `n_sweeps` sweeps of every chain
+    over a length-bucketed corpus, the rows walked as in
+    `slda_predict.slda_predict_stair` (doc-major chain fold, the live row
+    suffix a segment) against one stacked [M·W, T] table.
+
+    η and nt are gathered to the rows by `chain_of_row` and frozen for a
+    sweep; the log form reads sweep-frozen log(ntw + β) and log(nt + Wβ)
+    tables with the own token's two logs fixed up; the running
+    Σ_t η_t·N_dt of a row starts each sweep from `ref.lane_eta_dot`, the
+    kernels' order.  Between sweeps (not after the last) the table takes
+    every row's changed tokens, an exact ±1 scatter, and nt the column sums
+    of the rows' ndt deltas by chain: the delayed-count partition is the
+    whole corpus (the doc_block → D member of the fused family), where
+    the blocks executor refreshes a block's private copy.  At one sweep
+    nothing refreshes and every operation is independent per row, so each
+    document's result is bit for bit `ref.slda_train_sweeps_chains`'s.
+    The sparse draw's index (`topic_index`, [M·W, ·] rows) is the
+    launch-entry table's.
+
+    seg_tokens / seg_mask / seg_z0 [R_k, L_k] per segment (token ids
+    offset by c·W); seeds int32, y, inv_len f32 [R]; ndt0 [R, T];
+    ntw_t_stack [M·W, T]; nt, eta [M, T]; chain_of_row int64 [R].
+    Returns (z segments [R_k, L_k], ndt_final [R, T]); the caller
+    refreshes the global tables from (z0, z_final)."""
+    T = ndt0.shape[-1]
+    w_beta = vocab_size * beta
+    iota = torch.arange(T, device=ndt0.device)[None, :]
+    eta_rows = eta[chain_of_row]
+    table = ntw_t_stack.clone() if n_sweeps > 1 else ntw_t_stack
+    nt_loc = nt
+    segs = [(tok.long(), mk, int(r0), int(n0)) for tok, mk, r0, n0 in
+            zip(seg_tokens, seg_mask, seg_row_start, seg_tok_start)]
+    z_segs = list(seg_z0)
+    ndt = ndt0
+    for s in range(n_sweeps):
+        nt_rows = nt_loc[chain_of_row]
+        ndt_start, ndt = ndt, ndt.clone()
+        st = ref.lane_eta_dot(ndt_start, eta_rows)
+        if not product_form:
+            log_ntw = torch.log(table + beta)
+            log_nt_rows = torch.log(nt_rows + w_beta)
+        new_z = []
+        for (tok, mk, r0, n0), z in zip(segs, z_segs):
+            nd, stt, z = ndt[r0:], st[r0:], z.clone()
+            sd, y_s, il_s = seeds[r0:], y[r0:], inv_len[r0:]
+            eta_s, nt_s = eta_rows[r0:], nt_rows[r0:]
+            if not product_form:
+                log_nt_s = log_nt_rows[r0:]
+            for n in range(tok.shape[1]):
+                w, m, z_old = tok[:, n], mk[:, n], z[:, n]
+                zo = z_old.long()[:, None]
+                old = (iota == zo).to(torch.float32) * m[:, None]
+                nd = nd - old
+                stt = stt - eta_s.gather(1, zo)[:, 0] * m
+                if product_form:
+                    prior = (nd + alpha) * (table[w] - old + beta) \
+                        / (nt_s - old + w_beta)
+                else:
+                    # the hoisted logs, the own token's two fixed up
+                    own = old > 0
+                    fix_ntw = torch.log((table[w, zo[:, 0]] - 1.0) + beta)
+                    fix_nt = torch.log((nt_s.gather(1, zo)[:, 0] - 1.0)
+                                       + w_beta)
+                    prior = (torch.log(nd + alpha)
+                             + torch.where(own, fix_ntw[:, None], log_ntw[w])
+                             - torch.where(own, fix_nt[:, None], log_nt_s))
+                p = ref.token_weights(prior, stt, eta_s, il_s, y_s, rho,
+                                      supervised, product_form)
+                u = counter_uniform(sd, s * ctr_stride + n0 + n)
+                z_new = torch.where(
+                    m > 0, ref.draw_rows(p, u, w, m, topic_index), z_old)
+                zn = z_new.long()[:, None]
+                nd = nd + (iota == zn).to(torch.float32) * m[:, None]
+                stt = stt + eta_s.gather(1, zn)[:, 0] * m
+                z[:, n] = z_new
+            ndt[r0:] = nd
+            st[r0:] = stt
+            new_z.append(z)
+        if s < n_sweeps - 1:        # the whole corpus's delayed counts
+            for (tok, mk, _, _), zo, zn in zip(segs, z_segs, new_z):
+                changed = mk * (zn != zo).to(mk.dtype)
+                table.index_put_((tok, zo.long()), -changed,
+                                 accumulate=True)
+                table.index_put_((tok, zn.long()), changed, accumulate=True)
+            nt_loc = nt_loc + torch.zeros_like(nt_loc).index_add_(
+                0, chain_of_row, ndt - ndt_start)
+        z_segs = new_z
+    return z_segs, ndt

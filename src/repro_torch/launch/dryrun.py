@@ -124,6 +124,11 @@ def slda_plan_report(args, corpus=None):
         why.append("1 bucket (length_buckets=0 or uniform lengths) -> the "
                    "padded degenerate schedule; the blocks executor runs "
                    "the padded launches")
+    elif train_plan.executor == "stair":
+        why.append(f"{d['buckets']} buckets on the CPU route -> STAIR "
+                   "executor (per-bucket calls would re-run the token "
+                   "loop per bucket; stair keeps the step count at N_max "
+                   "while slots collapse to the staircase)")
     else:
         why.append(f"{d['buckets']} buckets -> one launch a bucket "
                    "(the blocks executor; chain batches intact)")

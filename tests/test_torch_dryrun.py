@@ -3,10 +3,10 @@ the reference's (`repro.launch.dryrun`'s `slda_plan_report`,
 `slda_serve_report` and `slda_elastic_report`) for the same arguments
 and the same corpus: placement, rounds, checkpointing, the plans'
 schedules and launches, the supervisor's policy and the service's slot
-layout are equal; the backend fields (the reference's Pallas route, the
-port's CUDA or plain route, and the executor, which follows the route:
-the reference's CPU route over several buckets runs its staircase
-executor, not ported) are not compared.
+layout are equal, and so is the executor (on the CPU over several
+buckets the staircase executor in both); the backend fields (the
+reference's Pallas route, the port's CUDA or plain route) are not
+compared.
 """
 import contextlib
 import io
@@ -24,8 +24,7 @@ from repro_torch.launch import dryrun
 ARGV = ["--device", "cpu", "--slda-docs", "64", "--slda-maxlen", "32",
         "--slda-vocab", "50", "--slda-topics", "8", "--slda-chains", "4",
         "--slda-buckets", "3", "--slda-batch-docs", "8"]
-BACKEND_FIELDS = ("backend", "device", "executor", "bucket_streams",
-                  "dispatch")
+BACKEND_FIELDS = ("backend", "device", "bucket_streams", "dispatch")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -42,7 +42,8 @@ def test_sources_import_neither_jax_nor_the_reference():
     assert {port / "launch" / m for m in ("mesh.py", "sharding.py",
                                           "cost.py", "dryrun.py")} | {
         port / "configs" / "shapes.py", port / "models" / "layout.py",
-        port / "serve_ensemble.py"} <= set(files)
+        port / "serve_ensemble.py", port / "quickstart.py",
+        port / "parallel_slda.py"} <= set(files)
     offenders = [str(f) for f in files if FORBIDDEN.search(f.read_text())]
     assert offenders == []
 
@@ -123,9 +124,10 @@ def test_entry_points_without_device_raise_without_cuda(no_cuda):
         init_params(SMOKES["qwen3-1.7b"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve_lm.main(["--smoke"])
-    from repro_torch import serve_ensemble
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        serve_ensemble.main([])
+    from repro_torch import parallel_slda, quickstart, serve_ensemble
+    for example in (serve_ensemble, quickstart, parallel_slda):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main([])
 
 
 def test_fault_tolerance_entry_points_default_to_the_card(no_cuda,

@@ -134,7 +134,8 @@ def test_describe_schedule_fields_match_reference():
               "padded_slot_frac", "slot_vs_effective_tok_ratio",
               "sampler_mode", "sparse_topic_cap"):
         assert p_d[k] == j_d[k], k
-    assert p_d["executor"] == "blocks" and p_d["buckets"] > 1
+    assert p_d["executor"] == j_d["executor"] == "stair"
+    assert p_d["buckets"] > 1
     assert p_d["bucket_streams"] == {"train": False, "predict": False}
     assert p_plan.cache_key()[0] == jtypes.bucket_signature(
         jplan.build_schedule(j_c, JConfig(**cfg)))
@@ -259,10 +260,11 @@ def test_bucketed_algorithms_equal_padded(corpus_pair, mode):
 def test_bucketed_train_with_reference_draws_matches_reference(corpus_pair,
                                                                spl):
     """Bucketed training under the reference's draws against the
-    reference's bucketed plan — at spl 4 on its `pallas-interpret`
-    backend, the blocks executor the port runs — with the draws within
-    the mismatch rule, counts exact, η and φ̂ close; at spl 1 the
-    bucketed prediction too."""
+    reference's bucketed plan — at spl 4 the blocks executor on both
+    sides (the reference's `pallas-interpret` backend, the port's
+    `executor="blocks"`) — with the draws within the mismatch rule,
+    counts exact, η and φ̂ close; at spl 1 the bucketed prediction too
+    (the staircase executor on both sides)."""
     (j_train, j_test), (p_train, p_test) = corpus_pair
     kw = dict(CFG, n_iters=5, sweeps_per_launch=spl,
               length_buckets=3, bucket_overhead_docs=0.0)
@@ -277,7 +279,7 @@ def test_bucketed_train_with_reference_draws_matches_reference(corpus_pair,
     z, draws = (_ref_train_draws(keys, 32, 32, 6, kw["n_iters"]) if spl == 1
                 else _ref_fused_draws(keys, 32, 32, 6,
                                       -(-kw["n_iters"] // spl)))
-    p_state, p_models = build_plan(p_sched, p_cfg).train(
+    p_state, p_models = build_plan(p_sched, p_cfg, executor="blocks").train(
         _t(z), (_t(d) for d in draws))
     shards = partition(p_train, 4)
     mask = shards.mask.numpy()
